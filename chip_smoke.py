@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the torch port on one CUDA card: builds the four
+"""Smoke run of the torch port on one CUDA card: builds the six
 hand-written kernels, holds each against its plain PyTorch twin at the
 shapes the level engine gives it, times both, and checks models end to
 end through the port's entry points.
@@ -22,6 +22,21 @@ Phases (any failure raises; the exit code is then not 0):
                against the twins on the card, counts equal; then each
                kernel against its twin again, and timed, at this
                model's widest level (rows named "...@4p")
+  8 symmetry   symtoy_scaled with 4 processes, MaxTurns 60 (fixtures/
+               symtoy_scaled_4p.cfg, 23 permutations) on kernels and
+               twins, counts equal to the reference's; K5 canon_rows and
+               K2's canonical branch against their twins and timed at the
+               widest level; K5 on random rows of the symkinds layout
+               (every container kind of the canonicaliser)
+  9 view       viewtoy_scaled at N 512 (fixtures/viewtoy_scaled_big.cfg)
+               on kernels and twins, counts equal to the formula's pins;
+               K2's view branch against its twin and timed
+ 10 por        msgstoy with 4 processes, T 10 (fixtures/msgstoy_
+               scaled.cfg) with --por on kernels and twins: counts and
+               por.* counters equal to the reference's; K6 por_mask and
+               the POR site of K3 against their twins and timed at the
+               widest level; portoy (deadlock) and portoy_bad
+               (invariant) with --por on the card equal to the CPU run
 The last three lines are the `nvidia-smi` name and power limit, the
 kernel table as JSON and {"ok": true, "device": {...}}.
 
@@ -51,9 +66,23 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
 INT_OPS_PER_S = 33.5e12
 
 PINS = (153701, 311153, 9)     # jaxmc/corpus.py transfer_scaled pins
+# the kernels a search without SYMMETRY, VIEW or --por launches
+MAIN_KERNELS = ("unpack_rows", "keys_of", "seen_probe", "rank_merge")
 DEVICE = "cuda"
-CFG_4P = os.path.join(ROOT, "jaxmc_torch", "fixtures",
-                      "transfer_scaled_4p.cfg")
+FIXTURES = os.path.join(ROOT, "jaxmc_torch", "fixtures")
+CFG_4P = os.path.join(FIXTURES, "transfer_scaled_4p.cfg")
+# (distinct, generated, diameter) of the JAX reference on the CPU
+# (`python -m jaxmc check SPEC --cfg CFG --backend cpu [--por]`, see
+# PERF.md section 4); the VIEW counts also follow distinct = N*N*M/Q
+# and generated = (2K+1)*distinct + 1
+CFG_SYM = os.path.join(FIXTURES, "symtoy_scaled_4p.cfg")
+PINS_SYM = (3018036, 21214789, 64)
+CFG_VIEW = os.path.join(FIXTURES, "viewtoy_scaled_big.cfg")
+PINS_VIEW = (4194304, 54525953, 172)
+CFG_POR = os.path.join(FIXTURES, "msgstoy_scaled.cfg")
+PINS_POR = (1048589, 7864334, 43)
+POR_PINS = {"por.ample_states": 1048584, "por.full_states": 4,
+            "por.device_masked_arms": 1048683}
 
 
 def log(msg: str) -> None:
@@ -183,6 +212,21 @@ def _bound(nbytes, nops):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def _row(tag, name, src, replaces, launches, err, ms, plain_ms, nbytes,
+         nops, library_ms=None, note=""):
+    bms, by = _bound(nbytes, nops)
+    log(f"[{tag}] {name}: max_abs_err {err}, kernel {ms:.4f} ms, twin "
+        f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by})"
+        + (f", library {library_ms:.4f} ms" if library_ms is not None
+           else "") + note)
+    if err != 0:
+        raise AssertionError(f"{name} differs from its twin")
+    return dict(name=name, route="cuda", source=src, replaces=replaces,
+                launches=launches, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=library_ms)
+
+
 def phase_kernels(eng, got, tag="3 kernels", suffix=""):
     """Each kernel against its twin on the captured inputs, bit-exact,
     and timed; one table row per kernel (named with `suffix`)."""
@@ -190,21 +234,10 @@ def phase_kernels(eng, got, tag="3 kernels", suffix=""):
     pt, W, PW = eng.pt, eng.W, eng.PW
     rows_out = []
 
-    def record(name, src, replaces, err, ms, plain_ms, nbytes, nops,
-               library_ms=None, note=""):
-        bms, by = _bound(nbytes, nops)
-        name += suffix
-        rows_out.append(dict(name=name, route="cuda", source=src,
-                             replaces=replaces, launches=0,
-                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bms, bound_by=by,
-                             library_ms=library_ms))
-        log(f"[{tag}] {name}: max_abs_err {err}, kernel {ms:.4f} ms, "
-            f"twin {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})"
-            + (f", library {library_ms:.4f} ms" if library_ms is not None
-               else "") + note)
-        if err != 0:
-            raise AssertionError(f"{name} differs from its twin")
+    def record(name, src, replaces, *args, **kw):
+        # launches are filled in from the search's counts by main()
+        rows_out.append(_row(tag, name + suffix, src, replaces, 0, *args,
+                             **kw))
 
     # K1 unpack_rows
     packed = got["unpack"]
@@ -340,7 +373,7 @@ def phase_main(tag, seen_mode):
         f"peak {peak / 2**20:.1f} MiB; launches {counts}")
     if not r.ok or got != PINS:
         raise AssertionError(f"transfer_scaled {got} != {PINS}")
-    missing = [k for k, v in counts.items() if v <= 0]
+    missing = [k for k in MAIN_KERNELS if counts[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
@@ -417,6 +450,266 @@ def phase_real_size():
     return out["kernels"], launches
 
 
+# ---------------------------------------------------------------------------
+# phases 8-10: SYMMETRY, VIEW and --por
+# ---------------------------------------------------------------------------
+
+def capturing_engine(spec, cfg, **kw):
+    """A TorchExplorer that keeps, for each of K5, K2 and K3+K6, the
+    inputs of the level that gave it the most valid rows (clones only:
+    no kernel launches and no counts of their own)."""
+    from jaxmc_torch.backend.bfs import TorchExplorer
+    from jaxmc_torch.session import load_model
+    got = {}
+
+    def keep(name, n, *xs):
+        if n > got.get(name + "_n", -1):
+            got[name + "_n"] = n
+            got[name] = tuple(x.clone() if isinstance(x, torch.Tensor)
+                              else x for x in xs)
+
+    class Capture(TorchExplorer):
+        def _canon(self, rows, valid):
+            keep("canon", int(valid.sum()), rows, valid)
+            return super()._canon(rows, valid)
+
+        def _keys_of(self, rows, valid):
+            keep("keys", int(valid.sum()), rows, valid)
+            return super()._keys_of(rows, valid)
+
+        def _por_filter(self, seen, seen_count, ckeys, cvalid, FC):
+            keep("por", int(cvalid.sum()), seen, seen_count, ckeys, cvalid,
+                 FC)
+            return super()._por_filter(seen, seen_count, ckeys, cvalid, FC)
+
+    eng = Capture(load_model(os.path.join(SPECS, spec), cfg), device=DEVICE,
+                  **kw)
+    return eng, got
+
+
+def phase_reduction(tag, spec, cfg, pins, need, **kw):
+    """The model on the kernels (capturing the widest level's inputs)
+    and on the twins: counts equal to `pins` on both, every kernel in
+    `need` launched on the kernel run, none on the twin run.  Returns
+    (engine, captured inputs, launch counts, por counters)."""
+    from jaxmc_torch import obs
+    from jaxmc_torch.kernels import ops
+    out = {}
+    for kind, twins in (("kernels", False), ("twins", True)):
+        obs.reset()
+        holder = {}
+
+        def make(holder=holder, twins=twins):
+            holder["eng"], holder["got"] = capturing_engine(
+                spec, cfg, store_trace=False, progress_every=1e9,
+                twins=twins, **kw)
+            return holder["eng"]
+        eng, r, wall, counts, peak = run_counted(make)
+        tel = obs.current()
+        por = {k: v for k, v in list(tel.counters.items())
+               + list(tel.gauges.items()) if k.startswith("por.")}
+        got3 = (r.distinct, r.generated, r.diameter)
+        widest = max(lv["frontier"] for lv in tel.levels)
+        log(f"[{tag}] {kind}: ok={r.ok} distinct {r.distinct} generated "
+            f"{r.generated} diameter {r.diameter}; wall {wall:.3f}s, "
+            f"{r.generated / wall:.0f} generated states/s; peak "
+            f"{peak / 2**30:.2f} GiB; widest frontier {widest}; layout "
+            f"W={eng.W} PW={eng.PW} K={eng.K} A={eng.A}; launches "
+            f"{counts}" + (f"; {por}" if por else ""))
+        if not r.ok or r.warnings:
+            raise AssertionError(f"{tag}: {kind} run ok={r.ok}, warnings "
+                                 f"{r.warnings}")
+        if got3 != pins:
+            raise AssertionError(f"{tag}: {kind} counts {got3} != {pins}")
+        if twins and any(counts.values()):
+            raise AssertionError(f"{tag}: twin run launched kernels")
+        if not twins:
+            missing = [k for k in need if counts[k] <= 0]
+            if missing:
+                raise AssertionError(f"{tag}: kernels not launched: "
+                                     f"{missing}")
+            out["kernels"] = (eng, holder["got"], counts, por)
+        else:
+            out["twins_por"] = por
+    if out["kernels"][3] != out["twins_por"]:
+        raise AssertionError(f"{tag}: por counters differ between "
+                             f"kernels and twins")
+    return out["kernels"]
+
+
+def check_canon(eng, got, counts, tag="8 symmetry"):
+    """K5 and K2's canonical branch against their twins at the level
+    with the most valid rows; K5 again over the symkinds layout."""
+    from jaxmc_torch.kernels import ops
+    canon, pt, W, PW, K = eng.canon, eng.pt, eng.W, eng.PW, eng.K
+    rows, valid = got["canon"]
+    N, nv = rows.shape[0], int(valid.sum())
+    k = ops.canon_rows(rows, valid, canon)
+    t = ops.canon_rows_twin(rows, valid, canon)
+    torch.cuda.synchronize()
+    prog = canon.program
+    o = [int(x) for x in prog[3:11]]
+    # per valid row and permutation: the lane copy, each alternative and
+    # condition of the program, the compare
+    per_row = 2 * W * canon.n_perms + (o[3] - o[2]) // 4 + \
+        (o[4] - o[3]) // 3
+    out = [_row(tag, "canon_rows", "jaxmc_torch/kernels/csrc/canon.cu",
+                "jaxmc/compile/symmetry2.py:272", counts["canon_rows"],
+                _max_abs(k, t),
+                cuda_time(lambda: ops.canon_rows(rows, valid, canon)),
+                cuda_time(lambda: ops.canon_rows_twin(rows, valid, canon),
+                          reps=3),
+                # every row read and written, one validity byte each
+                N + 2 * N * W * 4, nv * per_row,
+                note=f" [N={N} valid={nv} W={W} perms={canon.n_perms} "
+                     f"program {len(prog)} words]")]
+    rows, valid = got["keys"]
+    N, nv = rows.shape[0], int(valid.sum())
+    crows = ops.canon_rows(rows, valid, canon)
+    args = (rows, valid, pt, eng.fp_mode, eng.plan.identity)
+    kw = dict(basis=crows, basis_packed=True)
+    k = ops.keys_of(*args, **kw)
+    t = ops.keys_of_twin(*args, **kw)
+    torch.cuda.synchronize()
+    out.append(_row(
+        tag, "keys_of_canon", "jaxmc_torch/kernels/csrc/keys.cu",
+        "jaxmc/backend/bfs.py:1621", counts["keys_of_canon"],
+        _max_abs(list(k), list(t)),
+        cuda_time(lambda: ops.keys_of(*args, **kw)),
+        cuda_time(lambda: ops.keys_of_twin(*args, **kw), reps=3),
+        # validity, the valid raw and canonical rows; keys and packed
+        # rows of every row
+        N + 2 * nv * W * 4 + N * (PW + K) * 4, 2 * nv * W * 6,
+        note=f" [N={N} valid={nv} K={K}]"))
+    # every container kind: random rows of the symkinds layout
+    from jaxmc_torch.compile.kernel2 import build_layout2
+    from jaxmc_torch.compile.symmetry2 import build_canon2
+    from jaxmc_torch.compile.vspec import Bounds
+    from jaxmc_torch.engine.simulate import sample_states
+    from jaxmc_torch.session import load_model
+    kinds = os.path.join(FIXTURES, "symkinds")
+    m = load_model(kinds + ".tla", kinds + ".cfg")
+    lay = build_layout2(m, list(sample_states(m)), Bounds())
+    kc = build_canon2(m, lay)
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    r = torch.randint(-2, 14, (200000, lay.width), generator=g,
+                      device=DEVICE, dtype=torch.int32)
+    r[torch.rand(r.shape, generator=g, device=DEVICE) < 0.05] = 2**31 - 1
+    v = torch.rand(r.shape[0], generator=g, device=DEVICE) < 0.9
+    err = _max_abs(ops.canon_rows(r, v, kc), ops.canon_rows_twin(r, v, kc))
+    log(f"[{tag}] canon_rows on the symkinds layout (seq, growset, union, "
+        f"pfcn, kvtable; W={lay.width}, {kc.n_perms} permutations), "
+        f"200,000 random rows: max_abs_err {err}")
+    if err != 0:
+        raise AssertionError("canon_rows differs from its twin on the "
+                             "symkinds layout")
+    return out
+
+
+def check_view(eng, got, counts, tag="9 view"):
+    from jaxmc_torch.kernels import ops
+    pt, W, PW, K = eng.pt, eng.W, eng.PW, eng.K
+    rows, valid = got["keys"]
+    N, nv = rows.shape[0], int(valid.sum())
+    vb = eng.view_fn(rows).reshape(N, -1).to(torch.int32).contiguous()
+    Vw = vb.shape[1]
+    args = (rows, valid, pt, eng.fp_mode, eng.plan.identity)
+    kw = dict(basis=vb, basis_packed=False)
+    k = ops.keys_of(*args, **kw)
+    t = ops.keys_of_twin(*args, **kw)
+    torch.cuda.synchronize()
+    return [_row(
+        tag, "keys_of_view", "jaxmc_torch/kernels/csrc/keys.cu",
+        "jaxmc/backend/bfs.py:1608", counts["keys_of_view"],
+        _max_abs(list(k), list(t)),
+        cuda_time(lambda: ops.keys_of(*args, **kw)),
+        cuda_time(lambda: ops.keys_of_twin(*args, **kw), reps=3),
+        N + nv * (W + Vw) * 4 + N * (PW + K) * 4, nv * (W * 6 + Vw),
+        note=f" [N={N} valid={nv} view lanes {Vw} K={K}]")]
+
+
+def _fold(keys):
+    """Key data words (one or two) as one monotone int64, or None."""
+    w = keys.shape[1] - 1
+    if w == 1:
+        return keys[:, 1].to(torch.int64).contiguous()
+    if w == 2:
+        return (keys[:, 1].to(torch.int64) * (1 << 32)
+                + (keys[:, 2].to(torch.int64) + (1 << 31))).contiguous()
+    return None
+
+
+def check_por(eng, got, counts, tag="10 por"):
+    from jaxmc_torch.kernels import ops
+    seen, seen_count, ckeys, cvalid, FC = got["por"]
+    plan = eng._por_memo
+    ia, safe = plan["inst_arm_t"], plan["arm_safe_t"]
+    A = eng.A
+    C, K = ckeys.shape
+    fk = ops.seen_probe(seen, seen_count, ckeys, site="por")
+    ft = ops.seen_probe_twin(seen, seen_count, ckeys)
+    torch.cuda.synchronize()
+    lib_ms = None
+    sf, qf = _fold(seen[:seen_count]), _fold(ckeys)
+    if sf is not None:
+        lb_lib = torch.searchsorted(sf, qf)
+        if _max_abs(lb_lib[ckeys[:, 0] == 0], fk[1][ckeys[:, 0] == 0]):
+            raise AssertionError("searchsorted yardstick disagrees")
+        lib_ms = cuda_time(lambda: torch.searchsorted(sf, qf))
+    probes = max(1, math.ceil(math.log2(max(seen_count, 1) + 1)))
+    out = [_row(tag, "seen_probe_por", "jaxmc_torch/kernels/csrc/probe.cu",
+                "jaxmc/backend/bfs.py:199", counts["seen_probe_por"],
+                _max_abs(list(fk), list(ft)),
+                cuda_time(lambda: ops.seen_probe(seen, seen_count, ckeys,
+                                                 site="por")),
+                cuda_time(lambda: ops.seen_probe_twin(seen, seen_count,
+                                                      ckeys), reps=3),
+                (seen_count + C) * (K - 1) * 4 + C * 5,
+                C * probes * (K - 1) * 2, library_ms=lib_ms,
+                note=f" [C={C} seen_count={seen_count} K={K}, unsorted]")]
+    found = fk[0]
+    k = ops.por_mask(found, cvalid, ia, safe, A, FC)
+    t = ops.por_mask_twin(found, cvalid, ia, safe, A, FC)
+    torch.cuda.synchronize()
+    out.append(_row(
+        tag, "por_mask", "jaxmc_torch/kernels/csrc/por.cu",
+        "jaxmc/backend/bfs.py:216", counts["por_mask"],
+        _max_abs(list(k), list(t)),
+        cuda_time(lambda: ops.por_mask(found, cvalid, ia, safe, A, FC)),
+        cuda_time(lambda: ops.por_mask_twin(found, cvalid, ia, safe, A,
+                                            FC), reps=3),
+        # found and cvalid read, keep written, the arm tables
+        3 * C + 4 * A + safe.numel(), 6 * C,
+        note=f" [A={A} FC={FC} arms={safe.numel()} valid="
+             f"{int(cvalid.sum())} masked={int(k[3])}]"))
+    return out
+
+
+def phase_por_verdicts():
+    from jaxmc_torch.backend.bfs import TorchExplorer
+    from jaxmc_torch.kernels import ops
+    from jaxmc_torch.session import load_model
+    for cfg, kind in (("portoy.cfg", "deadlock"),
+                      ("portoy_bad.cfg", "invariant")):
+        res = {}
+        for dev in (DEVICE, "cpu"):
+            m = load_model(os.path.join(SPECS, "portoy.tla"),
+                           os.path.join(SPECS, cfg))
+            ops.reset_launches()
+            res[dev] = TorchExplorer(m, device=dev, por=True).run()
+            if dev == DEVICE and ops.LAUNCHES["por_mask"] <= 0:
+                raise AssertionError(f"{cfg}: K6 not launched")
+        a, b = _summary(res[DEVICE]), _summary(res["cpu"])
+        r = res[DEVICE]
+        log(f"[10 por] {cfg} --por: {r.violation.kind} "
+            f"{r.violation.name}, generated {r.generated} distinct "
+            f"{r.distinct}, trace {len(r.violation.trace)} states; "
+            f"cuda == cpu: {a == b}")
+        if a != b or r.violation.kind != kind:
+            raise AssertionError(f"{cfg}: cuda run differs from cpu run "
+                                 f"or verdict {r.violation.kind} != {kind}")
+
+
 def main() -> int:
     t_start = time.time()
     name, count, smi = phase_device()
@@ -444,6 +737,28 @@ def main() -> int:
     # the 4-process run keys exactly, so K2's fp128 branch has no
     # launches there: its row is timed, not counted
     table += [r for r in rows_4p if "_fp128" not in r["name"]]
+
+    eng, got, counts, _ = phase_reduction(
+        "8 symmetry", "symtoy_scaled.tla", CFG_SYM, PINS_SYM,
+        ("unpack_rows", "canon_rows", "keys_of_canon", "seen_probe",
+         "rank_merge"))
+    table += check_canon(eng, got, counts)
+    del eng, got
+    eng, got, counts, _ = phase_reduction(
+        "9 view", "viewtoy_scaled.tla", CFG_VIEW, PINS_VIEW,
+        ("unpack_rows", "keys_of_view", "seen_probe", "rank_merge"))
+    table += check_view(eng, got, counts)
+    del eng, got
+    eng, got, counts, por = phase_reduction(
+        "10 por", "msgstoy.tla", CFG_POR, PINS_POR,
+        ("unpack_rows", "keys_of", "seen_probe", "seen_probe_por",
+         "por_mask", "rank_merge"), por=True)
+    got_pins = {k: por.get(k) for k in POR_PINS}
+    if got_pins != POR_PINS:
+        raise AssertionError(f"por counters {got_pins} != {POR_PINS}")
+    table += check_por(eng, got, counts)
+    del eng, got
+    phase_por_verdicts()
     log(f"[done] {time.time() - t_start:.1f}s")
     print(f"{smi}")
     print(json.dumps({"kernels": table}))

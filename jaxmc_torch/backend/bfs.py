@@ -7,15 +7,23 @@ device; each BFS level is one step:
   1. unpack the frontier                   K1 unpack_rows  (CUDA)
   2. expand every (state x grounded action) compile/kernel2.py emitter
   3. pack the successors, compute keys     K2 keys_of      (CUDA)
-  4. stable-sort the candidate keys        torch.sort (LSD passes)
-  5. probe them against the sorted seen    K3 seen_probe   (CUDA)
-  6. rank-merge the new keys into the table K4 rank_merge  (CUDA)
-  7. apply the CONSTRAINTs, 8. order the next frontier by provenance,
-  9. check the invariants                  torch + the emitter
+     (cfg SYMMETRY: over the orbit minima  K5 canon_rows   (CUDA);
+      cfg VIEW: over the view's lanes      the emitter)
+  4. with --por: probe the keys against    K3 seen_probe   (CUDA)
+     the pre-level seen table and mask
+     every non-ample arm's candidates      K6 por_mask     (CUDA)
+  5. stable-sort the candidate keys        torch.sort (LSD passes)
+  6. probe them against the sorted seen    K3 seen_probe   (CUDA)
+  7. rank-merge the new keys into the table K4 rank_merge  (CUDA)
+  8. apply the CONSTRAINTs, 9. order the next frontier by provenance,
+  10. check the invariants                 torch + the emitter
 
-Two dedup modes, as the reference: exact (keys are the packed row) and
-fp128 (keys are four 32-bit mixes of the packed row) when the packed
-width passes FP_THRESHOLD or seen_mode="fingerprint".  Capacities are
+Two dedup modes, as the reference: exact (keys are the key basis) and
+fp128 (keys are four 32-bit mixes of it) when the key width passes
+FP_THRESHOLD or seen_mode="fingerprint".  The key basis is the packed
+row, the packed orbit minimum (SYMMETRY) or the view lanes (VIEW, over
+the orbit minimum when both are declared); the stored rows stay the
+raw states, so traces decode them unchanged.  Capacities are
 power-of-two buckets that grow on demand.  Parent provenance streams to
 the host per level for counterexample traces (store_trace=False skips
 it).  The step reads its verdict scalars in one small tensor: one host
@@ -27,6 +35,7 @@ the ROADMAP item that ports them.
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -38,7 +47,7 @@ from ..analyze import bounds_enabled, infer_state_bounds
 from ..compile.ground import ground_arm, split_arms
 from ..compile.kernel2 import (KernelCtx, OV_DEMOTED, OV_PACK,
                                build_layout2, compile_action2,
-                               compile_predicate2)
+                               compile_predicate2, compile_value2)
 from ..compile.vspec import Bounds, CompileError, ModeError
 from ..engine.explore import CheckResult, Violation
 from ..engine.simulate import sample_states
@@ -47,7 +56,11 @@ from ..sem.enumerate import enumerate_init
 from ..sem.modules import Model
 
 SENTINEL = np.int32(2**31 - 1)
-FP_THRESHOLD = 48  # packed lanes; beyond this, dedup on 128-bit fingerprints
+FP_THRESHOLD = 48  # key lanes; beyond this, dedup on 128-bit fingerprints
+
+SYMMETRY_WARNING = (
+    "cfg SYMMETRY NOT applied on the jax backend: counts are "
+    "unreduced and will exceed the interp/TLC reduced counts")
 
 
 def filter_init_states(model, layout, init_rows):
@@ -69,6 +82,9 @@ def filter_init_states(model, layout, init_rows):
                 return explored, (nm, st)
         explored.append(i)
     return explored, None
+
+
+_POR_UNSET = object()
 
 
 def _pow2_at_least(n: int, lo: int = 256) -> int:
@@ -100,7 +116,7 @@ class TorchExplorer:
                  bounds: Optional[Bounds] = None,
                  sample_cfg: Tuple[int, int, int] = (800, 40, 60),
                  seen_mode: str = "auto", device=None,
-                 twins: bool = False):
+                 twins: bool = False, por: bool = False):
         # twins=True runs the kernels' plain PyTorch twins on the same
         # device: the parity oracle for the CUDA path (tests and
         # chip_smoke.py pass it; nothing else does)
@@ -113,6 +129,13 @@ class TorchExplorer:
         self.progress_every = progress_every
         self.bounds = bounds or Bounds()
         self.sample_cfg = sample_cfg
+        # device POR: the plan (instance -> arm map, por-safe arms) is
+        # resolved once by _por_plan(), which names the refusal when the
+        # reduction cannot run
+        self.por = bool(por)
+        self.por_reason: Optional[str] = None
+        self._por_memo: Any = _POR_UNSET
+        self._por_stats = {"ample": 0, "expanded": 0, "masked": 0}
         self._refuse_modes(model)
 
         tel = obs.current()
@@ -149,8 +172,9 @@ class TorchExplorer:
                            device=self.device)
         self.arms = split_arms(model)
         self.compiled = []
+        self._ca_arm: List[int] = []  # arm index per compiled action
         fb_arms: List[Tuple[Any, str]] = []
-        for arm in self.arms:
+        for ai, arm in enumerate(self.arms):
             try:
                 with tel.span("compile_arm", arm=arm.label or "Next"):
                     cas = []
@@ -170,9 +194,26 @@ class TorchExplorer:
                           "compile time (RecursionError)"))
                 continue
             self.compiled.extend(cas)
+            self._ca_arm.extend([ai] * len(cas))
         self.labels_flat: List[str] = []
         for ca in self.compiled:
             self.labels_flat.extend([ca.label] * (ca.n_slots or 1))
+        # cfg SYMMETRY: key on each row's orbit minimum (same partition,
+        # hence same counts, as the reference); an encoding build_canon2
+        # rejects runs unreduced with the SYMMETRY warning, as the
+        # reference does.  An identity group builds no canonicaliser and
+        # warns of nothing: there is no reduction to diverge from.
+        self.canon = None
+        self._sym_fallback: Optional[str] = None
+        if model.symmetry is not None:
+            from ..compile.symmetry2 import build_canon2
+            try:
+                self.canon = build_canon2(model, self.layout)
+            except CompileError as e:
+                self._sym_fallback = str(e)
+        self.sym_identity = (model.symmetry is not None
+                             and self.canon is None
+                             and self._sym_fallback is None)
 
         def compile_preds(pairs):
             compiled, demoted = [], []
@@ -196,6 +237,23 @@ class TorchExplorer:
                       constraints=len(model.constraints)):
             self.inv_fns, fb_invs = compile_preds(model.invariants)
             self.constraint_fns, fb_cons = compile_preds(model.constraints)
+        # cfg VIEW: key the dedup on the view's value lanes (TLC
+        # fingerprints the view); the stored rows stay full states
+        self.view_fn = None
+        self.view_width = 0
+        if getattr(model, "view", None) is not None:
+            try:
+                self.view_fn = compile_value2(self.kc, model.view)
+                vz = self.view_fn(zero)
+                self.view_width = int(np.prod(vz.shape[1:]))
+            except RecursionError:
+                raise CompileError(
+                    "cfg VIEW expression recurses unboundedly at compile "
+                    "time - use --backend interp")
+            if self.view_width == 0:
+                raise CompileError(
+                    "cfg VIEW evaluates to zero lanes - use --backend "
+                    "interp")
         if fb_arms or fb_invs or fb_cons:
             reasons = "; ".join(
                 [f"action arm {a.label or 'Next'}: {r}" for a, r in fb_arms]
@@ -209,7 +267,9 @@ class TorchExplorer:
                 f"is ROADMAP A.8)")
 
         self.A = len(self.labels_flat)
-        self.fp_mode = self.PW > FP_THRESHOLD
+        self.key_width = self.view_width if self.view_fn is not None \
+            else self.PW
+        self.fp_mode = self.key_width > FP_THRESHOLD
         if seen_mode not in ("auto", "exact", "fingerprint"):
             raise ModeError(f"unknown --seen mode {seen_mode!r} "
                             f"(expected auto, exact or fingerprint)")
@@ -217,28 +277,27 @@ class TorchExplorer:
             self.fp_mode = True
         elif seen_mode == "exact" and self.fp_mode:
             raise ModeError(
-                f"--seen exact refused: the dedup key is {self.PW} "
-                f"lanes wide (> FP_THRESHOLD={FP_THRESHOLD}); exact keys "
+                f"--seen exact refused: the dedup key is "
+                f"{self.key_width} lanes wide (> FP_THRESHOLD="
+                f"{FP_THRESHOLD}); exact keys "
                 f"at this width would dominate device memory — use "
                 f"--seen fingerprint (collision probability is reported)")
         # dedup key lanes: an explicit validity lane FIRST (0=valid row,
-        # 1=invalid), then the packed row or its 4-word fingerprint
-        self.K = (4 if self.fp_mode else self.PW) + 1
+        # 1=invalid), then the key basis or its 4-word fingerprint
+        self.K = (4 if self.fp_mode else self.key_width) + 1
         self.pt = self.plan.tensors(self.device)
         tel.gauge("expand.compiled_instances", self.A)
         tel.gauge("layout.width_lanes", self.W)
         tel.gauge("layout.packed_width_lanes", self.PW)
         tel.gauge("seen.mode", "fingerprint" if self.fp_mode else "exact")
+        tel.gauge("dedup.mode",
+                  ("fp128" if self.fp_mode else "exact")
+                  + ("-view" if self.view_fn is not None
+                     else ("-packed" if not self.plan.identity else "")))
         tel.gauge("backend.device", str(self.device))
 
     @staticmethod
     def _refuse_modes(model: Model) -> None:
-        if model.symmetry is not None:
-            raise ModeError("cfg SYMMETRY is not ported to the torch "
-                            "level engine yet (ROADMAP A.5)")
-        if getattr(model, "view", None) is not None:
-            raise ModeError("cfg VIEW is not ported to the torch level "
-                            "engine yet (ROADMAP A.5)")
         if model.properties:
             raise ModeError("temporal and refinement PROPERTYs are not "
                             "ported to the torch level engine yet "
@@ -252,11 +311,42 @@ class TorchExplorer:
     def _unpack(self, packed: torch.Tensor) -> torch.Tensor:
         return self.plan.unpack_rows(packed, twin=self.twins)
 
+    def _canon(self, rows: torch.Tensor, valid: torch.Tensor):
+        f = ops.canon_rows_twin if self.twins else ops.canon_rows
+        return f(rows, valid, self.canon)
+
     def _keys_of(self, rows: torch.Tensor, valid: torch.Tensor):
         """(keys [N, K], packed [N, PW], pack_ovf 0-d bool) for a block
-        of UNPACKED rows (bfs._keys_of without SYMMETRY and VIEW)."""
+        of UNPACKED rows (bfs._keys_of).  The key basis is the packed
+        row; with cfg SYMMETRY the packed orbit minimum, whose range
+        guard joins pack_ovf (OV_PACK, never a wrong count); with cfg
+        VIEW the view's lanes, evaluated over the orbit minimum when
+        SYMMETRY is declared too.  The packed rows are the raw states."""
+        basis, basis_packed = None, False
+        if self.canon is not None or self.view_fn is not None:
+            crows = rows if self.canon is None else \
+                self._canon(rows, valid)
+            if self.view_fn is not None:
+                basis = self.view_fn(crows).reshape(
+                    rows.shape[0], -1).to(torch.int32).contiguous()
+            else:
+                basis, basis_packed = crows, True
         f = ops.keys_of_twin if self.twins else ops.keys_of
-        return f(rows, valid, self.pt, self.fp_mode, self.plan.identity)
+        return f(rows, valid, self.pt, self.fp_mode, self.plan.identity,
+                 basis=basis, basis_packed=basis_packed)
+
+    def _por_filter(self, seen, seen_count: int, ckeys, cvalid, FC: int):
+        """The device persistent-set filter: K3 probes the candidate keys
+        against the PRE-level seen table, K6 picks each slot's ample arm.
+        Returns (keep [C] bool, n_ample, n_expanded, n_masked)."""
+        plan = self._por_memo
+        if self.twins:
+            found, _ = ops.seen_probe_twin(seen, seen_count, ckeys)
+            return ops.por_mask_twin(found, cvalid, plan["inst_arm_t"],
+                                     plan["arm_safe_t"], self.A, FC)
+        found, _ = ops.seen_probe(seen, seen_count, ckeys, site="por")
+        return ops.por_mask(found, cvalid, plan["inst_arm_t"],
+                            plan["arm_safe_t"], self.A, FC)
 
     def _rank_merge(self, seen, seen_count: int, keys):
         f = ops.rank_merge_twin if self.twins else ops.rank_merge
@@ -302,7 +392,9 @@ class TorchExplorer:
         Requires seen_count + A*FC <= SC.  Returns a dict of device
         tensors; `scalars` is one int64 vector read with one copy:
         [overflow, assert_any, assert_a, assert_f, dead_any, dead_f,
-         gen, front_count, seen_count2, inv_any, inv_idx, inv_which]."""
+         gen, front_count, seen_count2, inv_any, inv_idx, inv_which],
+        followed by [por_ample, por_expanded, por_masked] when the
+        device POR filter runs."""
         A, W, K = self.A, self.W, self.K
         FC = frontier_p.shape[0]
         dev = frontier_p.device
@@ -322,6 +414,25 @@ class TorchExplorer:
                              torch.full_like(cand_u, int(SENTINEL)))
         ckeys, cand, pack_ovf = self._keys_of(cand_u, cvalid)
         del succ
+
+        por_scalars = []
+        if isinstance(self._por_memo, dict):
+            # persistent-set filter: probe the PRE-level seen table (the
+            # closure through this depth, so ample chains strictly
+            # deepen: the BFS cycle proviso), then mask every non-ample
+            # arm's candidates into invalid keys.  Deadlock and assert
+            # verdicts above read the PRE-mask enabledness; gen counts
+            # the reduced stream.
+            keep, n_amp, n_exp, n_masked = self._por_filter(
+                seen, seen_count, ckeys, cvalid, FC)
+            inv_key = torch.full((1, K), int(SENTINEL), dtype=torch.int32,
+                                 device=dev)
+            inv_key[0, 0] = 1
+            ckeys = torch.where(keep[:, None], ckeys, inv_key)
+            cvalid = keep
+            gen = keep.sum()
+            por_scalars = [n_amp.to(torch.int64), n_exp.to(torch.int64),
+                           n_masked.to(torch.int64)]
 
         # O(new): sort only the C candidate keys, dedup them against the
         # sorted seen prefix, scatter the new keys at their ranks.
@@ -386,7 +497,8 @@ class TorchExplorer:
             dead_f.to(torch.int64), gen.to(torch.int64),
             explore_count.to(torch.int64),
             rm["seen_count2"].to(torch.int64), inv_any.to(torch.int64),
-            inv_idx.to(torch.int64), inv_which.to(torch.int64)])
+            inv_idx.to(torch.int64), inv_which.to(torch.int64)]
+            + por_scalars)
         return dict(scalars=scalars, seen=rm["seen2"],
                     front_rows=front_rows, front_prov=front_prov,
                     dead=dead, assert_bad=assert_bad)
@@ -398,12 +510,29 @@ class TorchExplorer:
         ones, log the TLC init line.  Returns (init_rows, explored_init,
         n_init, err)."""
         layout = self.layout
-        rows: Dict[bytes, bool] = {}
-        for st in self.init_states:
-            rows[np.asarray(layout.encode(st), np.int32).tobytes()] = True
-        init_rows = np.stack([np.frombuffer(kk, dtype=np.int32)
-                              for kk in rows.keys()]) \
-            if rows else np.zeros((0, self.W), np.int32)
+        raw = [np.asarray(layout.encode(st), np.int32)
+               for st in self.init_states]
+        if raw and self.canon is not None:
+            # cfg SYMMETRY: dedup and count the init states by their
+            # orbit minimum (the reference stores the minimum itself)
+            t = torch.as_tensor(np.stack(raw), device=self.device)
+            ones = torch.ones(len(raw), dtype=torch.bool,
+                              device=self.device)
+            raw = list(self._canon(t, ones).cpu().numpy())
+        if raw and self.view_fn is not None:
+            # cfg VIEW: init states sharing a view value count once;
+            # the first state per key is kept
+            t = torch.as_tensor(np.stack(raw), device=self.device)
+            kb = self.view_fn(t).reshape(len(raw), -1).cpu().numpy()
+            byview: Dict[bytes, np.ndarray] = {}
+            for i, rr in enumerate(raw):
+                byview.setdefault(
+                    np.ascontiguousarray(kb[i], np.int32).tobytes(), rr)
+            init_rows = np.stack(list(byview.values()))
+        else:
+            rows = {rr.tobytes(): rr for rr in raw}
+            init_rows = np.stack(list(rows.values())) if rows else \
+                np.zeros((0, self.W), np.int32)
         n_init = len(init_rows)
         explored_init, init_viol = filter_init_states(self.model, layout,
                                                       init_rows)
@@ -452,6 +581,8 @@ class TorchExplorer:
         dev = self.device
         W, K, PW = self.W, self.K, self.PW
         warnings: List[str] = []
+        warnings.extend(self._symmetry_warnings())
+        warnings.extend(self._por_warnings())
         if self.fp_mode:
             warnings.append(
                 "wide state (W={}): dedup on 128-bit fingerprints; "
@@ -508,9 +639,9 @@ class TorchExplorer:
             obs.note_buffer("level.seen", SC * K * 4)
             obs.note_buffer("level.frontier", FC * PW * 4)
             out = self.level_step(seen, seen_count, frontier, fcount)
+            vals = [int(x) for x in out["scalars"].cpu().tolist()]
             (ovc, a_any, a_a, a_f, d_any, d_f, gen, front_count,
-             seen_count2, inv_any, inv_idx, inv_which) = \
-                [int(x) for x in out["scalars"].cpu().tolist()]
+             seen_count2, inv_any, inv_idx, inv_which) = vals[:12]
 
             if ovc:
                 if ovc == OV_DEMOTED:
@@ -543,6 +674,10 @@ class TorchExplorer:
                     Violation("deadlock", "deadlock", trace))
 
             generated += gen
+            if len(vals) > 12:
+                for name, v in zip(("ample", "expanded", "masked"),
+                                   vals[12:]):
+                    self._por_stats[name] += v
             distinct += front_count
             seen = out["seen"]
             seen_count = seen_count2
@@ -599,6 +734,116 @@ class TorchExplorer:
         return self._mk_result(True, distinct, generated, depth - 1, t0,
                                warnings)
 
+    # ---- SYMMETRY and POR disclosure ----
+
+    def _symmetry_warnings(self) -> List[str]:
+        if self.model.symmetry is None or self.canon is not None \
+                or self.sym_identity:
+            # identity groups have no reduction to fall back FROM
+            return []
+        return [SYMMETRY_WARNING + (f" ({self._sym_fallback})"
+                                    if self._sym_fallback else "")]
+
+    def _por_plan(self) -> Optional[Dict[str, Any]]:
+        """The device POR plan, or None with the named refusal in
+        self.por_reason (the engine then runs unreduced and says why).
+
+        plan = dict(inst_arm [A] int32 - split-arm index per flat kernel
+        instance (slotted kernels contribute n_slots entries), arm_safe
+        [n_arms] bool - arms the independence report proved commuting
+        with all and property-invisible), and both as tensors on the
+        device.  Hybrid specs, which the reference also refuses here,
+        never reach this point: the port refuses them at build."""
+        if self._por_memo is not _POR_UNSET:
+            return self._por_memo
+        from ..analyze.independence import (indep_enabled,
+                                            independence_report,
+                                            por_refusal)
+        plan = None
+        reason = None
+        if not self.por:
+            reason = "POR not requested"
+        elif not indep_enabled():
+            reason = ("independence analysis disabled "
+                      "(JAXMC_ANALYZE_INDEP=0)")
+        else:
+            reason = por_refusal(self.model)
+            if reason is None and (self.canon is not None
+                                   or self.sym_identity):
+                reason = "symmetry canonicalizer active"
+            if reason is None:
+                try:
+                    irep = independence_report(self.model, self.arms)
+                except Exception:
+                    if os.environ.get("JAXMC_DEBUG"):
+                        raise
+                    irep = None
+                if irep is None:
+                    reason = "independence analysis failed"
+                elif not irep.por_safe:
+                    reason = ("no arm commutes with every other arm "
+                              "invisibly")
+                else:
+                    if len(self.arms) > ops.POR_MAX_ARMS:
+                        raise ModeError(
+                            f"--por: {len(self.arms)} action arms, the "
+                            f"device filter takes at most "
+                            f"{ops.POR_MAX_ARMS}")
+                    safe = np.zeros(len(self.arms), dtype=bool)
+                    safe[list(irep.por_safe)] = True
+                    inst = np.asarray(
+                        [self._ca_arm[ci]
+                         for ci, ca in enumerate(self.compiled)
+                         for _ in range(max(1, ca.n_slots))], np.int32)
+                    assert inst.shape[0] == self.A
+                    plan = dict(inst_arm=inst, arm_safe=safe,
+                                inst_arm_t=torch.as_tensor(
+                                    inst, device=self.device),
+                                arm_safe_t=torch.as_tensor(
+                                    safe, device=self.device))
+        self._por_memo = plan
+        self.por_reason = reason
+        tel = obs.current()
+        if self.por:
+            if plan is None:
+                self.log(f"-- por requested but reduction disabled: "
+                         f"{reason} (running unreduced)")
+                tel.gauge("por.disabled_reason", reason)
+                tel.gauge("por.enabled", False)
+            else:
+                n_safe = int(plan["arm_safe"].sum())
+                self.log(f"-- por: {n_safe}/{len(self.arms)} arms "
+                         f"eligible as singleton ample sets (device "
+                         f"persistent-set filter in the fused step)")
+                tel.gauge("por.enabled", True)
+                tel.gauge("por.engine", "device")
+        return plan
+
+    def _por_warnings(self) -> List[str]:
+        """The reference's refusal warning, word for word, when --por
+        was requested but the reduction cannot run."""
+        if not self.por:
+            return []
+        if self._por_plan() is None:
+            return [f"--por requested but reduction disabled: "
+                    f"{self.por_reason} (running unreduced)"]
+        return []
+
+    def _por_finish(self, ample: int, expanded: int, masked: int,
+                    distinct: int) -> None:
+        """The end-of-run POR counters (the reference's names)."""
+        if not isinstance(self._por_memo, dict):
+            return
+        tel = obs.current()
+        full = max(0, int(expanded) - int(ample))
+        tel.counter("por.ample_states", int(ample))
+        tel.counter("por.full_states", full)
+        tel.gauge("por.ample_ratio",
+                  round(int(ample) / int(expanded), 4)
+                  if expanded else 0.0)
+        tel.gauge("por.device_masked_arms", int(masked))
+        tel.gauge("por.reduced_states", int(distinct))
+
     def _mk_result(self, ok, distinct, generated, diameter, t0, warnings,
                    violation=None, truncated=False,
                    trunc_reason: Optional[str] = None) -> CheckResult:
@@ -608,6 +853,9 @@ class TorchExplorer:
         occ = getattr(self, "_fp_occupancy", None)
         if occ is not None:
             tel.gauge("fingerprint.occupancy", occ)
+        self._por_finish(self._por_stats["ample"],
+                         self._por_stats["expanded"],
+                         self._por_stats["masked"], distinct)
         seen_mode = "fingerprint" if self.fp_mode else "exact"
         collision_p = None
         if self.fp_mode:

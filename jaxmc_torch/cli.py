@@ -2,6 +2,7 @@
 
     python -m jaxmc_torch check SPEC [--cfg F] [--device cuda|cpu]
         [--seen auto|exact|fingerprint] [--max-states N] [--no-trace]
+        [--no-deadlock] [--por]
 
 Prints the same TLC-style progress and final lines as `jaxmc check
 --backend jax`.  The search runs on the CUDA card unless --device cpu
@@ -19,8 +20,7 @@ from typing import List, Optional
 
 # options of `jaxmc check` whose engines this slice does not port, and
 # the ROADMAP item that ports each
-UNPORTED = (("por", "--por (device partial-order reduction)", "A.6"),
-            ("host_seen", "--host-seen (chunked host-seen engine)", "A.8"),
+UNPORTED = (("host_seen", "--host-seen (chunked host-seen engine)", "A.8"),
             ("seen_cap", "--seen-cap (out-of-core tiers)", "A.9"),
             ("resident", "--resident (resident engine)", "A.10"),
             ("checkpoint", "--checkpoint (level checkpoints)", "A.15"),
@@ -46,10 +46,12 @@ def cmd_check(args) -> int:
     log = Logger(quiet=False)
     try:
         refuse_unported(args)
-        model = load_model(args.spec, args.cfg)
+        model = load_model(args.spec, args.cfg,
+                           no_deadlock=args.no_deadlock)
         eng = TorchExplorer(model, log=log, max_states=args.max_states,
                             store_trace=not args.no_trace,
-                            seen_mode=args.seen, device=args.device)
+                            seen_mode=args.seen, device=args.device,
+                            por=args.por)
         res = eng.run()
     except ModeError as e:
         print(f"error: {e}", file=sys.stderr)
@@ -88,8 +90,12 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=("auto", "exact", "fingerprint"))
     c.add_argument("--max-states", type=int, default=None)
     c.add_argument("--no-trace", action="store_true")
+    c.add_argument("--no-deadlock", action="store_true",
+                   help="disable deadlock checking")
+    c.add_argument("--por", action="store_true",
+                   help="device partial-order reduction (persistent-set "
+                        "filter in the level step)")
     # accepted so that a `jaxmc check` command line is refused by name
-    c.add_argument("--por", action="store_true", help=argparse.SUPPRESS)
     c.add_argument("--host-seen", action="store_true",
                    help=argparse.SUPPRESS)
     c.add_argument("--resident", action="store_true",

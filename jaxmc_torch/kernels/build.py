@@ -23,7 +23,7 @@ from typing import Dict, List
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
 BUILD_ROOT = os.path.join(HERE, "_build")
-SOURCES = ("unpack", "keys", "probe", "merge")
+SOURCES = ("unpack", "keys", "probe", "merge", "canon", "por")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -33,16 +33,24 @@ _I = ctypes.c_int
 # argtypes of every C entry point: pointers and the stream as c_void_p
 ARGTYPES = {
     "jmc_unpack_rows": [_P] * 8 + [_I64, _I, _I, _P],
-    "jmc_keys_of": [_P] * 13 + [_I64, _I, _I, _I, _P],
+    "jmc_keys_of": [_P] * 14 + [_I64, _I, _I, _I, _I, _I, _P],
     "jmc_seen_probe": [_P] * 4 + [_I64, _I64, _I, _P],
     "jmc_merge_flags": [_P] * 5 + [_I64, _I64, _I, _P],
     "jmc_merge_compact": [_P] * 6 + [_I64, _I64, _P],
     "jmc_merge_scatter": [_P] * 7 + [_I64, _I64, _I64, _I, _P],
+    "jmc_canon_threads": [_I64],
+    "jmc_canon_rows": [_P] * 3 + [_I, _P, _P, _I64, _I, _P],
+    "jmc_por_max_arms": [],
+    "jmc_por_mask": [_P] * 6 + [_I, _I64, _I, _P],
 }
+# return types other than the cudaError_t (an int) of a launch
+RESTYPE = {"jmc_canon_threads": _I64}
 ENTRY = {"unpack": ["jmc_unpack_rows"], "keys": ["jmc_keys_of"],
          "probe": ["jmc_seen_probe"],
          "merge": ["jmc_merge_flags", "jmc_merge_compact",
-                   "jmc_merge_scatter"]}
+                   "jmc_merge_scatter"],
+         "canon": ["jmc_canon_threads", "jmc_canon_rows"],
+         "por": ["jmc_por_max_arms", "jmc_por_mask"]}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -133,7 +141,7 @@ def library(name: str) -> ctypes.CDLL:
             for fn in ENTRY[name]:
                 f = getattr(lib, fn)
                 f.argtypes = ARGTYPES[fn]
-                f.restype = ctypes.c_int
+                f.restype = RESTYPE.get(fn, ctypes.c_int)
             _libs[name] = lib
     return lib
 

@@ -1,5 +1,5 @@
-"""Wrappers of the level engine's four CUDA kernels, and their plain
-PyTorch twins.
+"""Wrappers of the level engine's CUDA kernels, and their plain PyTorch
+twins.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with `torch.empty`, launches its kernel on the current CUDA
@@ -15,12 +15,18 @@ too, which is how the kernels are compared with them on the card.
 
   unpack_rows   K1  compile/pack.py LanePlan.unpack_rows
   keys_of       K2  compile/pack.py LanePlan.pack_rows + the key build
-                    of backend/bfs.py _keys_of, with fingerprint128
-  seen_probe    K3  backend/bfs.py _lower_bound / _seen_probe
+                    of backend/bfs.py _keys_of, with fingerprint128;
+                    the key basis is the stored row, the SYMMETRY
+                    canonical rows (counted as keys_of_canon) or the
+                    VIEW lanes (keys_of_view)
+  seen_probe    K3  backend/bfs.py _lower_bound / _seen_probe; the POR
+                    probe site counts as seen_probe_por
   merge_sorted  K4  backend/bfs.py _rank_merge after its sort and
                     probe (flags, compaction, rank histogram and
                     scatter; the two prefix sums stay torch calls);
                     rank_merge = LSD sort (torch.sort) + K3 + K4
+  canon_rows    K5  compile/symmetry2.py build_canon2 / canon_row
+  por_mask      K6  backend/bfs.py _por_mask
 """
 
 from __future__ import annotations
@@ -39,7 +45,12 @@ FP_MIX = [(0x9E3779B1, 0x85EBCA6B), (0xC2B2AE35, 0x27D4EB2F),
 
 # launches per kernel since the last reset_launches()
 LAUNCHES: Dict[str, int] = {"unpack_rows": 0, "keys_of": 0,
-                            "seen_probe": 0, "rank_merge": 0}
+                            "keys_of_canon": 0, "keys_of_view": 0,
+                            "seen_probe": 0, "seen_probe_por": 0,
+                            "rank_merge": 0, "canon_rows": 0,
+                            "por_mask": 0}
+# arms the device POR filter takes (por.cu kMaxWords * 64)
+POR_MAX_ARMS = 1024
 
 
 def reset_launches() -> None:
@@ -202,47 +213,75 @@ def pack_rows_twin(rows: torch.Tensor, pt: dict
 
 
 def keys_of_twin(rows: torch.Tensor, valid: torch.Tensor, pt: dict,
-                 fp_mode: bool, identity: bool):
+                 fp_mode: bool, identity: bool, basis=None,
+                 basis_packed: bool = False):
     """(keys [N, K], packed [N, PW], pack_ovf scalar bool) of
-    bfs._keys_of without SYMMETRY or VIEW: the packed row, SENTINEL
-    where invalid, fingerprinted to four words in fp mode, behind a
-    validity lane (0 valid, 1 invalid)."""
+    bfs._keys_of: the packed row, SENTINEL where invalid, behind a
+    validity lane (0 valid, 1 invalid).  The key basis is the packed
+    row itself (basis None), `basis` [N, W] packed with the same plan
+    (basis_packed: the SYMMETRY canonical rows, whose range guard ORs
+    into pack_ovf) or `basis` [N, Vw] raw (the VIEW lanes);
+    fingerprinted to four words in fp mode."""
+    no_ovf = torch.zeros(rows.shape[0], dtype=torch.bool,
+                         device=rows.device)
     if identity:
-        packed = rows
-        povf = torch.zeros(rows.shape[0], dtype=torch.bool,
-                           device=rows.device)
+        packed, povf = rows, no_ovf
     else:
         packed, povf = pack_rows_twin(rows, pt)
     pack_ovf = (povf & valid).any()
     packed = torch.where(valid[:, None], packed,
                          torch.full_like(packed, SENTINEL))
-    k = fingerprint128_twin(packed) if fp_mode else packed
+    if basis is None:
+        kb = packed
+    elif basis_packed:
+        kb, cpovf = (basis, no_ovf) if identity else \
+            pack_rows_twin(basis, pt)
+        pack_ovf = pack_ovf | (cpovf & valid).any()
+    else:
+        kb = basis.reshape(rows.shape[0], -1)
+    k = fingerprint128_twin(kb) if fp_mode else kb
     k = torch.where(valid[:, None], k, torch.full_like(k, SENTINEL))
     vlane = torch.where(valid, 0, 1).to(torch.int32)
     return torch.cat([vlane[:, None], k], dim=1), packed, pack_ovf
 
 
 def keys_of(rows: torch.Tensor, valid: torch.Tensor, pt: dict,
-            fp_mode: bool, identity: bool, row_ovf: bool = False):
+            fp_mode: bool, identity: bool, row_ovf: bool = False,
+            basis=None, basis_packed: bool = False):
     """K2: (keys [N, K], packed [N, PW], pack_ovf 0-d bool tensor), and
-    with row_ovf=True the per-row pack-overflow flags [N] as a fourth
-    output (LanePlan.pack_rows reads them; the level step does not)."""
+    with row_ovf=True the per-row pack-overflow flags [N] of the stored
+    rows as a fourth output (LanePlan.pack_rows reads them; the level
+    step does not).  `basis`/`basis_packed` as in keys_of_twin."""
     _check(rows, "keys_of.rows", 2)
     _check(valid, "keys_of.valid", 1, torch.bool)
     if rows.shape[1] != pt["W"] or valid.shape[0] != rows.shape[0]:
         raise ValueError(f"keys_of: rows {tuple(rows.shape)}, valid "
                          f"{tuple(valid.shape)}, plan W={pt['W']}")
+    if basis is not None:
+        _check(basis, "keys_of.basis", 2)
+        if basis.shape[0] != rows.shape[0] or (
+                basis_packed and basis.shape[1] != pt["W"]):
+            raise ValueError(f"keys_of: basis {tuple(basis.shape)} for "
+                             f"rows {tuple(rows.shape)}")
     if rows.device.type == "cpu":
+        out = keys_of_twin(rows, valid, pt, fp_mode, identity, basis,
+                           basis_packed)
         if row_ovf:
-            packed, povf = pack_rows_twin(rows, pt)
-            k, p, o = keys_of_twin(rows, valid, pt, fp_mode, identity)
-            return k, p, o, povf & valid
-        return keys_of_twin(rows, valid, pt, fp_mode, identity)
+            return out + (pack_rows_twin(rows, pt)[1] & valid,)
+        return out
     _same_device("keys_of", rows, valid, pt["word"])
     from . import build
     lib = build.library("keys")
     N, PW = rows.shape[0], pt["PW"]
-    K = (4 if fp_mode else PW) + 1
+    if basis is None:
+        kind, bw, name = 0, PW, "keys_of"
+    elif basis_packed:
+        kind, bw, name = 1, PW, "keys_of_canon"
+    else:
+        kind, bw, name = 2, basis.shape[1], "keys_of_view"
+    if basis is not None:
+        _same_device("keys_of", rows, basis)
+    K = (4 if fp_mode else bw) + 1
     keys = torch.empty((N, K), dtype=torch.int32, device=rows.device)
     packed = torch.empty((N, PW), dtype=torch.int32, device=rows.device)
     flag = torch.empty((1,), dtype=torch.int32, device=rows.device)
@@ -251,12 +290,14 @@ def keys_of(rows: torch.Tensor, valid: torch.Tensor, pt: dict,
     rc = lib.jmc_keys_of(
         _ptr(rows), _ptr(valid), _ptr(pt["word"]), _ptr(pt["shift"]),
         _ptr(pt["mask"]), _ptr(pt["bias"]), _ptr(pt["allowed"]),
-        _ptr(pt["full"]), _ptr(pt["sent_code"]), _ptr(keys),
-        _ptr(packed), _ptr(flag),
+        _ptr(pt["full"]), _ptr(pt["sent_code"]),
+        _ptr(basis) if basis is not None else ctypes.c_void_p(0),
+        _ptr(keys), _ptr(packed), _ptr(flag),
         _ptr(rov) if rov is not None else ctypes.c_void_p(0),
         ctypes.c_int64(N), ctypes.c_int(pt["W"]), ctypes.c_int(PW),
-        ctypes.c_int(int(fp_mode)), _stream())
-    _launch("keys_of", rc)
+        ctypes.c_int(int(fp_mode)), ctypes.c_int(kind), ctypes.c_int(bw),
+        _stream())
+    _launch(name, rc)
     if row_ovf:
         return keys, packed, flag[0] != 0, rov
     return keys, packed, flag[0] != 0
@@ -299,8 +340,10 @@ def seen_probe_twin(seen: torch.Tensor, seen_count, keys: torch.Tensor):
     return found, lo
 
 
-def seen_probe(seen: torch.Tensor, seen_count: int, keys: torch.Tensor):
-    """K3: (found [N] bool, lb [N] int32); seen_count a host int."""
+def seen_probe(seen: torch.Tensor, seen_count: int, keys: torch.Tensor,
+               site: str = ""):
+    """K3: (found [N] bool, lb [N] int32); seen_count a host int.  A
+    launch counts under seen_probe, or seen_probe_<site>."""
     _check(seen, "seen_probe.seen", 2)
     _check(keys, "seen_probe.keys", 2)
     if seen.shape[1] != keys.shape[1]:
@@ -322,7 +365,7 @@ def seen_probe(seen: torch.Tensor, seen_count: int, keys: torch.Tensor):
         _ptr(seen), _ptr(keys), _ptr(found), _ptr(lb),
         ctypes.c_int64(int(seen_count)), ctypes.c_int64(N),
         ctypes.c_int(keys.shape[1]), _stream())
-    _launch("seen_probe", rc)
+    _launch("seen_probe_" + site if site else "seen_probe", rc)
     return found, lb
 
 
@@ -462,3 +505,106 @@ def rank_merge(seen: torch.Tensor, seen_count: int,
     skeys, sidx = _sort_keys(keys)
     found, lb = seen_probe(seen, seen_count, skeys)
     return merge_sorted(seen, seen_count, skeys, sidx, found, lb)
+
+
+# ---------------------------------------------------------------------------
+# K5 canon_rows
+# ---------------------------------------------------------------------------
+
+def canon_rows_twin(rows: torch.Tensor, valid: torch.Tensor, canon
+                    ) -> torch.Tensor:
+    """[N, W] int32: each valid row's orbit minimum (canon.twin), the
+    invalid rows unchanged."""
+    return torch.where(valid[:, None], canon.twin(rows), rows)
+
+
+def canon_rows(rows: torch.Tensor, valid: torch.Tensor, canon
+               ) -> torch.Tensor:
+    """K5: canon_rows_twin's function; `canon` is the layout's
+    compile/symmetry2.Canon, whose program the kernel interprets."""
+    _check(rows, "canon_rows.rows", 2)
+    _check(valid, "canon_rows.valid", 1, torch.bool)
+    if rows.shape[1] != canon.width or valid.shape[0] != rows.shape[0]:
+        raise ValueError(f"canon_rows: rows {tuple(rows.shape)}, valid "
+                         f"{tuple(valid.shape)}, layout W={canon.width}")
+    if rows.device.type == "cpu":
+        return canon_rows_twin(rows, valid, canon)
+    _same_device("canon_rows", rows, valid)
+    from . import build
+    lib = build.library("canon")
+    prog = canon.program_on(rows.device)
+    N, W = rows.shape
+    out = torch.empty_like(rows)
+    if N == 0:
+        return out
+    threads = int(lib.jmc_canon_threads(ctypes.c_int64(N)))
+    scratch = torch.empty((2 * W * threads,), dtype=torch.int32,
+                          device=rows.device)
+    rc = lib.jmc_canon_rows(
+        _ptr(rows), _ptr(valid), _ptr(prog), ctypes.c_int(prog.numel()),
+        _ptr(out), _ptr(scratch), ctypes.c_int64(N), ctypes.c_int(W),
+        _stream())
+    _launch("canon_rows", rc)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K6 por_mask
+# ---------------------------------------------------------------------------
+
+def por_mask_twin(found: torch.Tensor, cvalid: torch.Tensor,
+                  inst_arm: torch.Tensor, arm_safe: torch.Tensor, A: int,
+                  FC: int):
+    """bfs._por_mask: (keep [A*FC] bool, n_ample, n_expanded, masked),
+    the counts as 0-d int64 tensors.  The one-hot [n_arms, A] @ [A, FC]
+    products are int64 index_add_ over the instance rows (integer
+    matmul has no CUDA kernel in torch)."""
+    n_arms = arm_safe.shape[0]
+    dev = cvalid.device
+    cv = cvalid.reshape(A, FC)
+    bad = (found & cvalid).reshape(A, FC)
+    ia = inst_arm.to(torch.int64)
+    zero = torch.zeros((n_arms, FC), dtype=torch.int64, device=dev)
+    en_cnt = zero.index_add(0, ia, cv.to(torch.int64))
+    bad_cnt = zero.index_add(0, ia, bad.to(torch.int64))
+    elig = arm_safe[:, None] & (en_cnt > 0) & (bad_cnt == 0)
+    has = elig.any(dim=0)
+    # the lowest-indexed eligible arm (the reference's argmax over bool)
+    arms = torch.arange(n_arms, device=dev)[:, None]
+    chosen = torch.where(elig, arms, n_arms).min(dim=0).values
+    keep_inst = (~has)[None, :] | (ia[:, None] == chosen[None, :])
+    keep = keep_inst.reshape(A * FC) & cvalid
+    slot_en = cv.any(dim=0)
+    return (keep, (has & slot_en).sum(), slot_en.sum(),
+            (cvalid & ~keep).sum())
+
+
+def por_mask(found: torch.Tensor, cvalid: torch.Tensor,
+             inst_arm: torch.Tensor, arm_safe: torch.Tensor, A: int,
+             FC: int):
+    """K6: por_mask_twin's function (counts as 0-d int64 tensors)."""
+    _check(found, "por_mask.found", 1, torch.bool)
+    _check(cvalid, "por_mask.cvalid", 1, torch.bool)
+    _check(inst_arm, "por_mask.inst_arm", 1)
+    _check(arm_safe, "por_mask.arm_safe", 1, torch.bool)
+    if found.shape[0] != A * FC or cvalid.shape[0] != A * FC or \
+            inst_arm.shape[0] != A:
+        raise ValueError(f"por_mask: found {tuple(found.shape)}, cvalid "
+                         f"{tuple(cvalid.shape)}, inst_arm "
+                         f"{tuple(inst_arm.shape)} for A={A} FC={FC}")
+    if arm_safe.shape[0] > POR_MAX_ARMS:
+        raise ValueError(f"por_mask: {arm_safe.shape[0]} arms, the "
+                         f"kernel takes at most {POR_MAX_ARMS}")
+    if found.device.type == "cpu":
+        return por_mask_twin(found, cvalid, inst_arm, arm_safe, A, FC)
+    _same_device("por_mask", found, cvalid, inst_arm, arm_safe)
+    from . import build
+    lib = build.library("por")
+    keep = torch.empty((A * FC,), dtype=torch.bool, device=found.device)
+    counts = torch.empty((3,), dtype=torch.int64, device=found.device)
+    rc = lib.jmc_por_mask(
+        _ptr(found), _ptr(cvalid), _ptr(inst_arm), _ptr(arm_safe),
+        _ptr(keep), _ptr(counts), ctypes.c_int(A), ctypes.c_int64(FC),
+        ctypes.c_int(arm_safe.shape[0]), _stream())
+    _launch("por_mask", rc)
+    return keep, counts[0], counts[1], counts[2]

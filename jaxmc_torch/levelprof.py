@@ -1,6 +1,7 @@
 """Where a level-engine run spends its time on the card.
 
-    python -m jaxmc_torch.levelprof SPEC [--cfg F] [--seen MODE] [--top N]
+    python -m jaxmc_torch.levelprof SPEC [--cfg F] [--seen MODE] [--por]
+        [--top N]
 
 Builds TorchExplorer on the CUDA card and runs the search three times:
   1. to warm the kernel build and the allocator;
@@ -8,8 +9,10 @@ Builds TorchExplorer on the CUDA card and runs the search three times:
      intervals of every kernel, copy and memset it ran, the idle share
      is 1 - busy/wall, and the top kernels are ranked by device time;
   3. with a synchronise after each stage of the level step — unpack
-     (K1), expand (the emitter), keys (K2), merge (sort + K3 + K4),
-     predicates (CONSTRAINTs and invariants) — and around the whole
+     (K1), expand (the emitter), keys (K2, and the VIEW's emitter),
+     canon (K5, under SYMMETRY), por (K3 + K6, with --por), merge
+     (sort + K3 + K4), predicates (CONSTRAINTs and invariants) — and
+     around the whole
      step, so each stage's wall (host dispatch plus its device work),
      the rest of the step and the loop around it add up to the run's.
 Prints one JSON line with all of it and the card's name and power
@@ -27,8 +30,8 @@ import time
 
 import torch
 
-STAGES = ("level.unpack", "level.expand", "level.keys", "level.merge",
-          "level.predicates")
+STAGES = ("level.unpack", "level.expand", "level.keys", "level.canon",
+          "level.por", "level.merge", "level.predicates")
 STEP = "level.step"
 
 
@@ -89,6 +92,13 @@ def staged_engine(model, timed: bool, **kw):
         def _keys_of(self, rows, valid):
             return stage("level.keys", super()._keys_of, rows, valid)
 
+        def _canon(self, rows, valid):
+            return stage("level.canon", super()._canon, rows, valid)
+
+        def _por_filter(self, seen, seen_count, ckeys, cvalid, FC):
+            return stage("level.por", super()._por_filter, seen,
+                         seen_count, ckeys, cvalid, FC)
+
         def _rank_merge(self, seen, seen_count, keys):
             return stage("level.merge", super()._rank_merge, seen,
                          seen_count, keys)
@@ -103,13 +113,14 @@ def staged_engine(model, timed: bool, **kw):
     return eng, acc
 
 
-def profile_run(spec, cfg=None, seen_mode="auto", top=12):
+def profile_run(spec, cfg=None, seen_mode="auto", top=12, por=False):
     from torch.profiler import ProfilerActivity, profile
     from .session import load_model
     if not torch.cuda.is_available():
         raise RuntimeError("levelprof measures the CUDA card and none is "
                            "available")
-    kw = dict(store_trace=False, seen_mode=seen_mode, progress_every=1e9)
+    kw = dict(store_trace=False, seen_mode=seen_mode, progress_every=1e9,
+              por=por)
     eng, _ = staged_engine(load_model(spec, cfg), False, **kw)
     eng.run()                                   # warm: build, allocator
     torch.cuda.synchronize()
@@ -138,6 +149,8 @@ def profile_run(spec, cfg=None, seen_mode="auto", top=12):
     wall3 = time.time() - t0
     if (r3.distinct, r3.generated) != (r.distinct, r.generated):
         raise AssertionError("staged run's counts differ")
+    # the keys stage calls the canon stage inside it: keep them apart
+    acc["level.keys"] -= acc["level.canon"]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -167,8 +180,9 @@ def main(argv=None) -> int:
     p.add_argument("--seen", default="auto",
                    choices=("auto", "exact", "fingerprint"))
     p.add_argument("--top", type=int, default=12)
+    p.add_argument("--por", action="store_true")
     a = p.parse_args(argv)
-    out = profile_run(a.spec, a.cfg, a.seen, a.top)
+    out = profile_run(a.spec, a.cfg, a.seen, a.top, a.por)
     print(json.dumps(out))
     return 0
 

@@ -1,6 +1,7 @@
-"""The four CUDA kernels of the torch port against their plain PyTorch
+"""The six CUDA kernels of the torch port against their plain PyTorch
 twins, on the card, at the shapes the level engine gives them, and the
-level engine on the card against the corpus pins.
+level engine on the card against the corpus pins, with SYMMETRY, VIEW
+and --por among them.
 
 Needs a CUDA card and nvcc; elsewhere every test skips with the reason.
 Run on the card with:  python -m pytest -m gpu tests/test_torch_cuda.py
@@ -175,4 +176,121 @@ def test_transfer_scaled_on_the_card(card, seen_mode):
     r = eng.run()
     assert (r.ok, r.distinct, r.generated, r.diameter) == \
         (True, 153701, 311153, 9)
-    assert all(v > 0 for v in ops.LAUNCHES.values()), ops.LAUNCHES
+    base = ("unpack_rows", "keys_of", "seen_probe", "rank_merge")
+    assert all(ops.LAUNCHES[k] > 0 for k in base), ops.LAUNCHES
+
+
+def _sym_layout(spec, cfg):
+    from jaxmc_torch.compile.kernel2 import build_layout2
+    from jaxmc_torch.compile.symmetry2 import build_canon2
+    from jaxmc_torch.compile.vspec import Bounds
+    from jaxmc_torch.engine.simulate import sample_states
+    from jaxmc_torch.session import load_model
+    m = load_model(spec, cfg)
+    lay = build_layout2(m, list(sample_states(m)), Bounds())
+    return lay, build_canon2(m, lay)
+
+
+@pytest.mark.parametrize("which", ["symtoy_scaled", "symkinds"])
+@pytest.mark.parametrize("n", [1, 3000, 400000])
+def test_canon_rows_matches_twin(card, which, n):
+    from jaxmc_torch.kernels import ops
+    if which == "symkinds":
+        base = os.path.join(ROOT, "jaxmc_torch", "fixtures", "symkinds")
+        lay, canon = _sym_layout(base + ".tla", base + ".cfg")
+    else:
+        lay, canon = _sym_layout(os.path.join(SPECS, which + ".tla"),
+                                 os.path.join(SPECS, which + ".cfg"))
+    rng = np.random.default_rng(n)
+    rows = rng.integers(-2, 14, (n, lay.width)).astype(np.int32)
+    rows[rng.random(rows.shape) < 0.05] = SENT
+    valid = rng.random(n) < 0.8
+    r = torch.as_tensor(rows, device=card)
+    v = torch.as_tensor(valid, device=card)
+    got = ops.canon_rows(r, v, canon)
+    torch.cuda.synchronize()
+    _eq(got, ops.canon_rows_twin(r, v, canon))
+
+
+@pytest.mark.parametrize("fp", [False, True])
+@pytest.mark.parametrize("n", [1, 4096, 655360])
+def test_keys_of_basis_branches_match_twin(card, n, fp):
+    """K2 with the canonical rows (packed with the plan, range-guarded)
+    and with raw view lanes as the key basis."""
+    from jaxmc_torch.kernels import ops
+    eng, rows, valid = _plan_and_rows(n, 5)
+    rng = np.random.default_rng(n + 1)
+    other = rows[valid][rng.integers(0, max(int(valid.sum()), 1), n)] \
+        if valid.any() else rows.copy()
+    r = torch.as_tensor(rows, device=card)
+    v = torch.as_tensor(valid, device=card)
+    view = torch.as_tensor(np.ascontiguousarray(rows[:, :3]), device=card)
+    for basis, packed in ((torch.as_tensor(other, device=card), True),
+                          (view, False)):
+        k = ops.keys_of(r, v, eng.pt, fp, False, basis=basis,
+                        basis_packed=packed)
+        t = ops.keys_of_twin(r, v, eng.pt, fp, False, basis=basis,
+                             basis_packed=packed)
+        torch.cuda.synchronize()
+        for a, b in zip(k, t):
+            _eq(a, b)
+    # a canonical row out of range raises the flag, the raw rows do not
+    if valid.any():
+        lane = int(np.nonzero(~eng.plan.full)[0][0])
+        bad = other.copy()
+        bad[int(np.nonzero(valid)[0][0]), lane] = \
+            int(eng.plan.bias[lane] + eng.plan.allowed[lane]) + 3
+        b = torch.as_tensor(bad, device=card)
+        k = ops.keys_of(r, v, eng.pt, fp, False, basis=b, basis_packed=True)
+        t = ops.keys_of_twin(r, v, eng.pt, fp, False, basis=b,
+                             basis_packed=True)
+        assert bool(k[2]) and bool(t[2])
+
+
+@pytest.mark.parametrize("A,FC,n_arms", [(4, 1, 4), (13, 4096, 9),
+                                         (40, 300000, 70)])
+def test_por_mask_matches_twin(card, A, FC, n_arms):
+    from jaxmc_torch.kernels import build, ops
+    assert build.library("por").jmc_por_max_arms() == ops.POR_MAX_ARMS
+    rng = np.random.default_rng(A)
+    inst = np.sort(rng.integers(0, n_arms, A)).astype(np.int32)
+    for trial in range(3):
+        cvalid = rng.random(A * FC) < (0.3, 0.8, 1.0)[trial]
+        found = rng.random(A * FC) < (0.05, 0.2, 0.5)[trial]
+        safe = rng.random(n_arms) < 0.5
+        args = [torch.as_tensor(x, device=card)
+                for x in (found, cvalid, inst, safe)] + [A, FC]
+        k = ops.por_mask(*args)
+        t = ops.por_mask_twin(*args)
+        torch.cuda.synchronize()
+        for a, b in zip(k, t):
+            _eq(a, b)
+
+
+@pytest.mark.parametrize("spec,cfg,kw,want,need", [
+    ("symtoy_scaled.tla", "symtoy_scaled.cfg", {}, (10725, 65365),
+     ("canon_rows", "keys_of_canon")),
+    ("viewtoy_scaled.tla", "viewtoy_scaled.cfg", {}, (18432, 239617),
+     ("keys_of_view",)),
+    ("msgstoy.tla", "msgstoy.cfg", {"por": True}, None,
+     ("seen_probe_por", "por_mask")),
+])
+def test_reduction_modes_on_the_card(card, spec, cfg, kw, want, need):
+    """Each mode on the kernels equals the same model on the twins (on
+    the card) and, where given, the corpus pins."""
+    from jaxmc_torch.backend.bfs import TorchExplorer
+    from jaxmc_torch.kernels import ops
+    from jaxmc_torch.session import load_model
+    res = {}
+    for twins in (False, True):
+        m = load_model(os.path.join(SPECS, spec), os.path.join(SPECS, cfg),
+                       no_deadlock=True)
+        ops.reset_launches()
+        res[twins] = TorchExplorer(m, twins=twins, **kw).run()
+        if not twins:
+            assert all(ops.LAUNCHES[k] > 0 for k in need), ops.LAUNCHES
+    a, b = res[False], res[True]
+    assert (a.ok, a.distinct, a.generated, a.diameter) == \
+        (b.ok, b.distinct, b.generated, b.diameter)
+    if want is not None:
+        assert (a.distinct, a.generated) == want

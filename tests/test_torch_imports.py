@@ -69,22 +69,34 @@ def test_cli_refuses_without_a_card_unless_asked(capsys):
     assert "Model checking completed. No error has been found." in out
 
 
-@pytest.mark.parametrize("spec,cfg,why", [
-    ("symtoy.tla", "symtoy.cfg", "SYMMETRY"),
-    ("viewtoy.tla", "viewtoy.cfg", "VIEW"),
-])
-def test_unported_modes_are_refused(spec, cfg, why):
+LIVE_TLA = """---- MODULE livetoy ----
+EXTENDS Naturals
+VARIABLES x
+Init == x = 0
+Next == x < 2 /\\ x' = x + 1
+Spec == Init /\\ [][Next]_x
+Live == <>(x = 2)
+====
+"""
+
+
+@pytest.mark.parametrize("why,item", [("PROPERTY", "A.7")])
+def test_unported_modes_are_refused(why, item, tmp_path):
+    """cfg SYMMETRY and VIEW run on the port (tests/test_torch_symmetry.py);
+    a temporal PROPERTY is still refused, naming its ROADMAP item."""
     from jaxmc_torch.backend.bfs import TorchExplorer
     from jaxmc_torch.compile.vspec import ModeError
     from jaxmc_torch.session import load_model
-    model = load_model(os.path.join(ROOT, "specs", spec),
-                       os.path.join(ROOT, "specs", cfg))
-    with pytest.raises(ModeError, match=f"{why}.*ROADMAP A.5"):
+    (tmp_path / "livetoy.tla").write_text(LIVE_TLA)
+    (tmp_path / "livetoy.cfg").write_text(
+        "SPECIFICATION Spec\nPROPERTY Live\n")
+    model = load_model(str(tmp_path / "livetoy.tla"))
+    with pytest.raises(ModeError, match=f"{why}.*ROADMAP {item}"):
         TorchExplorer(model, device="cpu")
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--por"], "A.6"), (["--host-seen"], "A.8"), (["--seen-cap", "64"], "A.9"),
+    (["--host-seen"], "A.8"), (["--seen-cap", "64"], "A.9"),
     (["--resident"], "A.10"), (["--checkpoint", "x.ck"], "A.15"),
 ])
 def test_cli_refuses_unported_options_by_item(flag, item, capsys):

@@ -58,6 +58,10 @@ def _candidate_block(ej, n, seed):
 @pytest.mark.parametrize("spec,cfg", [
     ("transfer_scaled.tla", "transfer_scaled.cfg"),
     ("batchtoy.tla", "batchtoy_a.cfg"),
+    # the key basis is the packed orbit minimum (SYMMETRY) and the view
+    # lanes (VIEW)
+    ("symtoy_scaled.tla", "symtoy_scaled.cfg"),
+    ("viewtoy_scaled.tla", "viewtoy_scaled.cfg"),
 ])
 def test_keys_of_matches_reference(spec, cfg, seen_mode):
     ej, et = _engines(spec, cfg, seen_mode)
@@ -95,3 +99,31 @@ def test_keys_of_pack_overflow_is_validity_masked():
     _, _, ot = et._keys_of(torch.as_tensor(bad_valid),
                            torch.as_tensor(valid))
     assert bool(ot) == bool(oj) is True
+
+
+@pytest.mark.parametrize("fp", [False, True])
+def test_keys_of_basis_twin_matches_reference_key_build(fp):
+    """ops.keys_of with a separate basis: the packed basis (SYMMETRY) and
+    the raw basis (VIEW) give the reference's key build over that basis
+    (bfs._keys_of: pack, SENTINEL where invalid, fingerprint128), while
+    the packed output stays the raw rows'."""
+    ej, et = _engines("transfer_scaled.tla", "transfer_scaled.cfg", "auto")
+    rows, valid = _candidate_block(ej, 200, seed=13)
+    rng = np.random.default_rng(17)
+    other = rows[valid][rng.integers(0, int(valid.sum()), len(rows))]
+    other[~valid] = SENT
+    r, v = torch.as_tensor(rows), torch.as_tensor(valid)
+    pj = np.asarray(ej.plan.pack_rows(jnp.asarray(other))[0])
+    view = np.ascontiguousarray(rows[:, :3])
+    for basis, packed_basis, kb in ((other, True, pj), (view, False, view)):
+        k, p, o = ops.keys_of(r, v, et.pt, fp, et.plan.identity,
+                              basis=torch.as_tensor(basis),
+                              basis_packed=packed_basis)
+        want = np.asarray(fingerprint128(jnp.asarray(kb))) if fp else kb
+        want = np.where(valid[:, None], want, SENT)
+        np.testing.assert_array_equal(k.numpy()[:, 1:], want)
+        np.testing.assert_array_equal(k.numpy()[:, 0], np.where(valid, 0, 1))
+        np.testing.assert_array_equal(
+            p.numpy(), np.where(valid[:, None], np.asarray(
+                ej.plan.pack_rows(jnp.asarray(rows))[0]), SENT))
+        assert not bool(o)

@@ -244,6 +244,22 @@ def test_format_trace_matches_reference(kind, name, message, n_states):
     assert tformat(vt) == jformat(vj)
 
 
+@pytest.mark.parametrize("spec,cfg,kw", [
+    ("symtoy.tla", "symtoy.cfg", {}),
+    ("viewtoy.tla", "viewtoy.cfg", {}),
+    ("portoy.tla", "portoy.cfg", {"por": True}),
+    ("portoy.tla", "portoy_bad.cfg", {"por": True}),
+])
+def test_reduction_modes_match_reference_with_traces(spec, cfg, kw):
+    """SYMMETRY, VIEW and --por whole runs: verdict, counts and every
+    trace state, rendered variable by variable."""
+    def tweak(c):
+        c.check_deadlock = not spec.startswith("symtoy")
+    mj, mt = _models(os.path.join(SPECS, spec), _cfg(cfg), tweak)
+    rj, rt = _run_both(mj, mt, **kw)
+    assert rt.warnings == rj.warnings == []
+
+
 @pytest.mark.slow
 def test_transfer_scaled_full_pins():
     """The corpus pins (jaxmc/corpus.py): 153,701 distinct, 311,153
