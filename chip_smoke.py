@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Smoke run of the torch port on one CUDA card: builds the six
-hand-written kernels, holds each against its plain PyTorch twin at the
-shapes the level engine gives it, times both, and checks models end to
-end through the port's entry points.
+"""Smoke run of the torch port on one CUDA card: builds the seven
+hand-written kernels and the native fingerprint store, holds each
+kernel against its plain PyTorch twin at the shapes the engines give
+it, times both, and checks models end to end through the port's entry
+points: the level engine and the chunked host-seen engine.
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
 Phases (any failure raises; the exit code is then not 0):
   1 device     card name, count, `nvidia-smi` name and power limit
-  2 build      nvcc each kernel for sm_90a; print its ptxas line
+  2 build      nvcc each kernel for sm_90a; print its ptxas line; g++
+               the native host fingerprint store
   3 kernels    capture the widest level's inputs of transfer_scaled on
                the card; each kernel against its twin, bit-exact; times
   4 main path  transfer_scaled (153,701 distinct / 311,153 generated /
@@ -37,6 +39,21 @@ Phases (any failure raises; the exit code is then not 0):
                the POR site of K3 against their twins and timed at the
                widest level; portoy (deadlock) and portoy_bad
                (invariant) with --por on the card equal to the CPU run
+ 11 host seen  transfer_scaled_4p with --host-seen at chunk 65,536 on
+               kernels and twins: the pins of phase 7, K1, K2 and K7
+               launched and neither K3 nor K4; wall, generated states/s,
+               peak device memory, the host store's size; then K7
+               against its twin, and timed, at the chunk with the most
+               valid candidates (row "hstep_epilogue@4p")
+ 12 hs por     msgstoy_scaled with --por --host-seen at chunk 65,536 on
+               kernels and twins: counts and por.* counters equal to the
+               reference's host_seen run at that chunk
+ 13 hybrid     interparm_toy (a demoted arm), fixtures/guarddem (guard
+               demotion after three relayouts, then a restart),
+               fixtures/deepvar (adaptive relayout) and
+               fixtures/allinterp (every arm interpreted) under
+               --host-seen on the card equal to the CPU run: verdict,
+               counts, trace and every log line
 The last three lines are the `nvidia-smi` name and power limit, the
 kernel table as JSON and {"ok": true, "device": {...}}.
 
@@ -83,6 +100,19 @@ CFG_POR = os.path.join(FIXTURES, "msgstoy_scaled.cfg")
 PINS_POR = (1048589, 7864334, 43)
 POR_PINS = {"por.ample_states": 1048584, "por.full_states": 4,
             "por.device_masked_arms": 1048683}
+# the host-seen phases' chunk; --chunk keeps its default of 2048
+CHUNK_HS = 65536
+# msgstoy_scaled --por under host_seen at CHUNK_HS (the reference's
+# `python -m jaxmc check specs/msgstoy.tla --cfg CFG_POR --backend jax
+# --platform cpu --host-seen --chunk 65536 --por --no-trace`): the
+# ample probe reads the store chunk by chunk, so these differ from the
+# level engine's
+PINS_HS_POR = (3014742, 22038124, 43)
+POR_PINS_HS = {"por.ample_states": 1807106, "por.full_states": 1207635,
+               "por.device_masked_arms": 1642412}
+# the kernels a host-seen search launches, and those it must not
+HS_KERNELS = ("unpack_rows", "keys_of", "hstep_epilogue")
+HS_ABSENT = ("seen_probe", "seen_probe_por", "rank_merge", "por_mask")
 
 
 def log(msg: str) -> None:
@@ -114,6 +144,7 @@ def phase_device():
 # ---------------------------------------------------------------------------
 
 def phase_build():
+    from jaxmc_torch import native_store
     from jaxmc_torch.kernels import build
     t0 = time.time()
     lines = build.load_all()
@@ -122,6 +153,11 @@ def phase_build():
     for src, ls in lines.items():
         for ln in ls:
             log(f"[2 build] {src}.cu: {ln}")
+    t0 = time.time()
+    if not native_store.is_available():
+        raise AssertionError(f"native store: {native_store.build_error()}")
+    log(f"[2 build] native store {os.path.relpath(native_store._SO, ROOT)} "
+        f"in {time.time() - t0:.1f}s")
 
 
 # ---------------------------------------------------------------------------
@@ -710,6 +746,173 @@ def phase_por_verdicts():
                                  f"or verdict {r.violation.kind} != {kind}")
 
 
+# ---------------------------------------------------------------------------
+# phases 11-13: the chunked host-seen engine
+# ---------------------------------------------------------------------------
+
+def host_seen_engine(spec, cfg, capture=None, **kw):
+    """A host-seen TorchExplorer; with `capture` (a dict) it keeps the
+    K7 inputs of the chunk with the most valid candidates (this reads
+    each chunk's count back, so only the twin run captures)."""
+    from jaxmc_torch.backend.bfs import TorchExplorer
+    from jaxmc_torch.session import load_model
+
+    class Capture(TorchExplorer):
+        def _epilogue(self, en, aok, ov, fcount, keys, cand, pack_ovf,
+                      inv_ok, explore):
+            CH = en.shape[1]
+            fv = torch.arange(CH, device=en.device) < fcount
+            n = int((en & fv[None, :]).sum())
+            if n > capture.get("n", -1):
+                capture.update(n=n, args=tuple(
+                    x.clone() if isinstance(x, torch.Tensor) else x
+                    for x in (en, aok, ov, fcount, keys, cand, pack_ovf,
+                              inv_ok, explore)))
+            return super()._epilogue(en, aok, ov, fcount, keys, cand,
+                                     pack_ovf, inv_ok, explore)
+
+    cls = Capture if capture is not None else TorchExplorer
+    return cls(load_model(os.path.join(SPECS, spec), cfg), device=DEVICE,
+               host_seen=True, chunk=CHUNK_HS, store_trace=False,
+               progress_every=1e9, **kw)
+
+
+def phase_host_seen(tag, spec, cfg, pins, por_pins=None, **kw):
+    """The model under --host-seen at CHUNK_HS on the kernels and on
+    the twins (capturing K7's inputs): counts equal to `pins` on both,
+    HS_KERNELS launched and HS_ABSENT not on the kernel run, none on
+    the twin run.  Returns (launch counts, captured K7 inputs)."""
+    from jaxmc_torch import obs
+    out, captured = {}, {}
+    for kind, twins in (("kernels", False), ("twins", True)):
+        obs.reset()
+        eng, r, wall, counts, peak = run_counted(
+            lambda twins=twins: host_seen_engine(
+                spec, cfg, captured if twins else None, twins=twins, **kw))
+        tel = obs.current()
+        por = {k: v for k, v in list(tel.counters.items())
+               + list(tel.gauges.items()) if k.startswith("por.")}
+        got3 = (r.distinct, r.generated, r.diameter)
+        widest = max(lv["frontier"] for lv in tel.levels)
+        occ = eng._fp_occupancy
+        log(f"[{tag}] {kind}: ok={r.ok} distinct {r.distinct} generated "
+            f"{r.generated} diameter {r.diameter}; wall {wall:.3f}s, "
+            f"{r.generated / wall:.0f} generated states/s; peak "
+            f"{peak / 2**30:.2f} GiB; widest frontier {widest} "
+            f"({-(-widest // CHUNK_HS)} chunks of {CHUNK_HS}); host store "
+            f"{occ} fingerprints ({occ * 16 / 2**20:.1f} MiB); layout "
+            f"W={eng.W} PW={eng.PW} K={eng.K} A={eng.A}; launches "
+            f"{counts}" + (f"; {por}" if por else ""))
+        if not r.ok or got3 != pins:
+            raise AssertionError(f"{tag}: {kind} ok={r.ok} counts {got3} "
+                                 f"!= {pins}")
+        if por_pins is not None:
+            got_pins = {k: por.get(k) for k in por_pins}
+            if got_pins != por_pins:
+                raise AssertionError(f"{tag}: {kind} por counters "
+                                     f"{got_pins} != {por_pins}")
+        if twins and any(counts.values()):
+            raise AssertionError(f"{tag}: twin run launched kernels")
+        if not twins:
+            missing = [k for k in HS_KERNELS if counts[k] <= 0]
+            extra = [k for k in HS_ABSENT if counts[k] > 0]
+            if missing or extra:
+                raise AssertionError(f"{tag}: kernels not launched "
+                                     f"{missing}, launched {extra}")
+            out["counts"] = counts
+    return out["counts"], captured
+
+
+def check_hstep(captured, launches, tag="11 host seen"):
+    """K7 against its twin, bit for bit, on the captured chunk; timed
+    beside its twin, its byte bound and torch.nonzero + index_select
+    doing the same compaction."""
+    from jaxmc_torch.compile.kernel2 import OV_PACK
+    from jaxmc_torch.kernels import ops
+    (en, aok, ov, fcount, keys, cand, povf, inv, exp) = captured["args"]
+    args = (en, aok, ov, fcount, keys, cand, povf, OV_PACK, inv, exp)
+    k = ops.hstep_epilogue(*args)
+    t = ops.hstep_epilogue_twin(*args)
+    torch.cuda.synchronize()
+    nv = int(t["scalars"][0])
+    names = ["idx", "fps", "rows", "inv_ok", "explore"]
+    err = max(_max_abs(k["scalars"], t["scalars"]),
+              _max_abs(k["dead"], t["dead"]),
+              max(_max_abs(k[n][:nv], t[n][:nv]) for n in names))
+    A, CH = en.shape
+    C, PW = A * CH, cand.shape[1]
+    fv = torch.arange(CH, device=en.device) < fcount
+
+    def library():
+        idx = torch.nonzero((en & fv[None, :]).reshape(-1)).flatten()
+        return keys.index_select(0, idx), cand.index_select(0, idx)
+    lib = library()
+    if _max_abs(lib[1], k["rows"][:nv]) or \
+            _max_abs(lib[0][:, 1:], k["fps"][:nv]):
+        raise AssertionError("nonzero + index_select yardstick disagrees")
+    preds = 2
+    # the three launches' device time alone, from the profiler: the
+    # event time above also holds the wrapper's host work when that is
+    # the longer of the two
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            ops.hstep_epilogue(*args)
+        torch.cuda.synchronize()
+    dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if "hstep_" in e.key and "kernel" in e.key) / 10
+    return _row(
+        tag, "hstep_epilogue@4p", "jaxmc_torch/kernels/csrc/hstep.cu",
+        "jaxmc/backend/bfs.py:1938", launches["hstep_epilogue"], err,
+        cuda_time(lambda: ops.hstep_epilogue(*args)),
+        cuda_time(lambda: ops.hstep_epilogue_twin(*args), reps=3),
+        # en, aok and ov of every candidate; the valid candidates' four
+        # fingerprint words, row words and predicate bits read and
+        # written compacted with their index; dead written
+        C * 6 + nv * (16 + PW * 4 + preds) * 2 + nv * 4 + CH + 48,
+        C * 8 + nv * (5 + PW + preds),
+        library_ms=cuda_time(library),
+        note=f" [A={A} CH={CH} fcount={fcount} valid={nv} PW={PW}; "
+             f"3 launches, device time {dev_us / 1e3:.4f} ms]")
+
+
+def phase_hybrid():
+    """The hybrid fixtures under --host-seen on the card and on the
+    CPU: verdict, counts, trace and every log line equal; K7 launched
+    on the card."""
+    from jaxmc_torch.backend.bfs import TorchExplorer
+    from jaxmc_torch.kernels import ops
+    from jaxmc_torch.session import load_model
+    cases = [("interparm_toy", os.path.join(SPECS, "interparm_toy"), {},
+              (True, 29, 19), "interp-demoted"),
+             ("guarddem", os.path.join(FIXTURES, "guarddem"), {},
+              (True, 17, 11), "hybrid: demotion abort"),
+             ("deepvar", os.path.join(FIXTURES, "deepvar"),
+              {"sample_cfg": (3, 2, 3)}, (True, 12, 11),
+              "hybrid: adaptive relayout"),
+             ("allinterp", os.path.join(FIXTURES, "allinterp"), {},
+              (True, 6, 5), "EVERY action arm")]
+    for tag, base, kw, want, line in cases:
+        res = {}
+        for dev in (DEVICE, "cpu"):
+            lines = []
+            ops.reset_launches()
+            r = TorchExplorer(load_model(base + ".tla", base + ".cfg"),
+                              device=dev, host_seen=True, log=lines.append,
+                              progress_every=1e9, **kw).run()
+            if dev == DEVICE and ops.LAUNCHES["hstep_epilogue"] <= 0:
+                raise AssertionError(f"{tag}: K7 not launched")
+            res[dev] = _summary(r) + (tuple(r.warnings), tuple(lines))
+        r = res[DEVICE]
+        n_line = sum(line in ln for ln in r[-1])
+        log(f"[13 hybrid] {tag}: ok={r[0]} generated {r[1]} distinct "
+            f"{r[2]}; {n_line} log line(s) with {line!r}; cuda == cpu: "
+            f"{res[DEVICE] == res['cpu']}")
+        if res[DEVICE] != res["cpu"] or r[:3] != want or not n_line:
+            raise AssertionError(f"{tag}: cuda run differs from cpu run "
+                                 f"or {r[:3]} != {want}")
+
+
 def main() -> int:
     t_start = time.time()
     name, count, smi = phase_device()
@@ -759,6 +962,14 @@ def main() -> int:
     table += check_por(eng, got, counts)
     del eng, got
     phase_por_verdicts()
+
+    counts, captured = phase_host_seen("11 host seen", "transfer_scaled.tla",
+                                       CFG_4P, counts_4p)
+    table.append(check_hstep(captured, counts))
+    del captured
+    phase_host_seen("12 hs por", "msgstoy.tla", CFG_POR, PINS_HS_POR,
+                    POR_PINS_HS, por=True)
+    phase_hybrid()
     log(f"[done] {time.time() - t_start:.1f}s")
     print(f"{smi}")
     print(json.dumps({"kernels": table}))

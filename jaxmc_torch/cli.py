@@ -2,12 +2,15 @@
 
     python -m jaxmc_torch check SPEC [--cfg F] [--device cuda|cpu]
         [--seen auto|exact|fingerprint] [--max-states N] [--no-trace]
-        [--no-deadlock] [--por]
+        [--no-deadlock] [--por] [--host-seen [--chunk N]]
 
 Prints the same TLC-style progress and final lines as `jaxmc check
 --backend jax`.  The search runs on the CUDA card unless --device cpu
-is given.  Exit codes: 0 no error found, 1 a violation, 2 a refused
-mode or an uncompilable spec.
+is given.  --host-seen runs the chunked engine whose seen set is the
+native host fingerprint store, the mode that also runs hybrid specs
+(units the compiler rejects demote to the interpreter).  Exit codes:
+0 no error found, 1 a violation, 2 a refused mode or an uncompilable
+spec.
 """
 
 from __future__ import annotations
@@ -20,16 +23,25 @@ from typing import List, Optional
 
 # options of `jaxmc check` whose engines this slice does not port, and
 # the ROADMAP item that ports each
-UNPORTED = (("host_seen", "--host-seen (chunked host-seen engine)", "A.8"),
-            ("seen_cap", "--seen-cap (out-of-core tiers)", "A.9"),
+UNPORTED = (("seen_cap", "--seen-cap (out-of-core tiers)", "A.9"),
             ("resident", "--resident (resident engine)", "A.10"),
             ("checkpoint", "--checkpoint (level checkpoints)", "A.15"),
             ("resume", "--resume (level checkpoints)", "A.15"))
 
 
 def refuse_unported(args) -> None:
+    """Refuse the options no ported engine runs.  Under --host-seen,
+    --seen-cap is accepted (the engine logs that it is ignored, as the
+    reference does) and --resident is refused with the reference's
+    text for the pair."""
     from .compile.vspec import ModeError
+    if args.host_seen and args.resident:
+        raise ModeError("resident and host_seen are mutually exclusive: "
+                        "resident keeps the seen-set on device, host_seen "
+                        "keeps it in the native host store")
     for attr, what, item in UNPORTED:
+        if args.host_seen and attr == "seen_cap":
+            continue
         if getattr(args, attr, None):
             raise ModeError(f"{what} is not ported to the torch engine "
                             f"yet (ROADMAP {item})")
@@ -51,7 +63,10 @@ def cmd_check(args) -> int:
         eng = TorchExplorer(model, log=log, max_states=args.max_states,
                             store_trace=not args.no_trace,
                             seen_mode=args.seen, device=args.device,
-                            por=args.por)
+                            por=args.por, host_seen=args.host_seen,
+                            chunk=args.chunk,
+                            seen_cap=args.seen_cap if args.host_seen
+                            else None)
         res = eng.run()
     except ModeError as e:
         print(f"error: {e}", file=sys.stderr)
@@ -81,7 +96,7 @@ def cmd_check(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m jaxmc_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
-    c = sub.add_parser("check", help="model-check SPEC on the level engine")
+    c = sub.add_parser("check", help="model-check SPEC")
     c.add_argument("spec")
     c.add_argument("--cfg", default=None)
     c.add_argument("--device", default=None, choices=("cuda", "cpu"),
@@ -95,9 +110,12 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--por", action="store_true",
                    help="device partial-order reduction (persistent-set "
                         "filter in the level step)")
-    # accepted so that a `jaxmc check` command line is refused by name
     c.add_argument("--host-seen", action="store_true",
-                   help=argparse.SUPPRESS)
+                   help="chunked engine with the seen set in the native "
+                        "host fingerprint store; runs hybrid specs")
+    c.add_argument("--chunk", type=int, default=2048,
+                   help="frontier rows per device step (host-seen mode)")
+    # accepted so that a `jaxmc check` command line is refused by name
     c.add_argument("--resident", action="store_true",
                    help=argparse.SUPPRESS)
     c.add_argument("--seen-cap", type=int, default=None,

@@ -23,7 +23,7 @@ from typing import Dict, List
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
 BUILD_ROOT = os.path.join(HERE, "_build")
-SOURCES = ("unpack", "keys", "probe", "merge", "canon", "por")
+SOURCES = ("unpack", "keys", "probe", "merge", "canon", "por", "hstep")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -42,6 +42,10 @@ ARGTYPES = {
     "jmc_canon_rows": [_P] * 3 + [_I, _P, _P, _I64, _I, _P],
     "jmc_por_max_arms": [],
     "jmc_por_mask": [_P] * 6 + [_I, _I64, _I, _P],
+    "jmc_hstep_threads": [],
+    "jmc_hstep_count": [_P] * 8 + [_I, _I, _I, _P],
+    "jmc_hstep_scan": [_P] * 7 + [_I, _I, _P],
+    "jmc_hstep_scatter": [_P] * 11 + [_I, _I, _I, _I, _P],
 }
 # return types other than the cudaError_t (an int) of a launch
 RESTYPE = {"jmc_canon_threads": _I64}
@@ -50,7 +54,9 @@ ENTRY = {"unpack": ["jmc_unpack_rows"], "keys": ["jmc_keys_of"],
          "merge": ["jmc_merge_flags", "jmc_merge_compact",
                    "jmc_merge_scatter"],
          "canon": ["jmc_canon_threads", "jmc_canon_rows"],
-         "por": ["jmc_por_max_arms", "jmc_por_mask"]}
+         "por": ["jmc_por_max_arms", "jmc_por_mask"],
+         "hstep": ["jmc_hstep_threads", "jmc_hstep_count", "jmc_hstep_scan",
+                   "jmc_hstep_scatter"]}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -27,6 +27,9 @@ too, which is how the kernels are compared with them on the card.
                     rank_merge = LSD sort (torch.sort) + K3 + K4
   canon_rows    K5  compile/symmetry2.py build_canon2 / canon_row
   por_mask      K6  backend/bfs.py _por_mask
+  hstep_epilogue K7 backend/bfs.py _hstep_core's masks and reductions
+                    and the host's compaction of the valid candidates
+                    in _run_host_seen
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ LAUNCHES: Dict[str, int] = {"unpack_rows": 0, "keys_of": 0,
                             "keys_of_canon": 0, "keys_of_view": 0,
                             "seen_probe": 0, "seen_probe_por": 0,
                             "rank_merge": 0, "canon_rows": 0,
-                            "por_mask": 0}
+                            "por_mask": 0, "hstep_epilogue": 0}
 # arms the device POR filter takes (por.cu kMaxWords * 64)
 POR_MAX_ARMS = 1024
 
@@ -608,3 +611,135 @@ def por_mask(found: torch.Tensor, cvalid: torch.Tensor,
         ctypes.c_int(arm_safe.shape[0]), _stream())
     _launch("por_mask", rc)
     return keep, counts[0], counts[1], counts[2]
+
+
+# ---------------------------------------------------------------------------
+# K7 hstep_epilogue
+# ---------------------------------------------------------------------------
+
+# scalars of hstep_epilogue, in order
+HSTEP_SCALARS = ("nv", "overflow", "assert_any", "assert_flat", "dead_any",
+                 "dead_f")
+
+
+def hstep_epilogue_twin(en: torch.Tensor, aok: torch.Tensor,
+                        ov: torch.Tensor, fcount: int, keys: torch.Tensor,
+                        cand: torch.Tensor, pack_ovf, ov_pack: int,
+                        inv_ok: torch.Tensor, explore: torch.Tensor) -> dict:
+    """The host-seen chunk epilogue of bfs._hstep_core and
+    _run_host_seen: over en, aok [A, CH] bool, ov [A, CH] int32 with
+    the first `fcount` frontier slots valid, keys [A*CH, 5], cand
+    [A*CH, PW], K2's pack-overflow flag and the predicate bits inv_ok
+    and explore [A*CH], returns
+
+      scalars  int64 [6]: nv (the valid candidates, = gen), the
+               overflow code (the largest kernel code, else ov_pack
+               when pack_ovf, else 0), assert_any, the first assert-bad
+               flat index a*CH+f (np.argmax order), dead_any, the first
+               dead slot;
+      dead     [CH] bool;
+      idx      the valid candidates' flat indices a*CH+f, ascending,
+               and their fingerprint words `fps` (keys[:, 1:5]),
+               packed `rows`, `inv_ok` and `explore`.
+
+    The compacted outputs have at least nv rows; rows past nv are
+    unspecified (here there are none)."""
+    A, CH = en.shape
+    dev = en.device
+    fvalid = torch.arange(CH, device=dev) < int(fcount)
+    valid = en & fvalid[None, :]
+    assert_bad = (~aok) & fvalid[None, :]
+    dead = fvalid & ~en.any(dim=0) if A else fvalid
+    idx = torch.nonzero(valid.reshape(-1)).flatten()
+    base_ov = int(torch.where(fvalid[None, :], ov, 0).max()) \
+        if ov.numel() else 0
+    code = base_ov if base_ov != 0 else (int(ov_pack) if bool(pack_ovf)
+                                         else 0)
+    ab = assert_bad.reshape(-1)
+    ab_any = bool(ab.any()) if ab.numel() else False
+    ab_flat = int(torch.argmax(ab.to(torch.int32))) if ab_any else 0
+    dead_any = bool(dead.any())
+    dead_f = int(torch.argmax(dead.to(torch.int32))) if dead_any else 0
+    scalars = torch.tensor([idx.numel(), code, int(ab_any), ab_flat,
+                            int(dead_any), dead_f], dtype=torch.int64,
+                           device=dev)
+    out = dict(scalars=scalars, dead=dead, idx=idx.to(torch.int32),
+               fps=keys.index_select(0, idx)[:, 1:5],
+               rows=cand.index_select(0, idx),
+               inv_ok=inv_ok.index_select(0, idx),
+               explore=explore.index_select(0, idx))
+    return out
+
+
+def hstep_epilogue(en: torch.Tensor, aok: torch.Tensor, ov: torch.Tensor,
+                   fcount: int, keys: torch.Tensor, cand: torch.Tensor,
+                   pack_ovf, ov_pack: int, inv_ok: torch.Tensor,
+                   explore: torch.Tensor) -> dict:
+    """K7: hstep_epilogue_twin's function in three launches (block
+    counts and reductions, one-block scan, scatter); pack_ovf is K2's
+    0-d bool tensor.  Nothing is read back to the host here."""
+    _check(en, "hstep_epilogue.en", 2, torch.bool)
+    _check(aok, "hstep_epilogue.aok", 2, torch.bool)
+    _check(ov, "hstep_epilogue.ov", 2)
+    _check(keys, "hstep_epilogue.keys", 2)
+    _check(cand, "hstep_epilogue.cand", 2)
+    A, CH = en.shape
+    C = A * CH
+    if aok.shape != en.shape or ov.shape != en.shape or \
+            keys.shape != (C, 5) or cand.shape[0] != C:
+        raise ValueError(f"hstep_epilogue: en {tuple(en.shape)}, aok "
+                         f"{tuple(aok.shape)}, ov {tuple(ov.shape)}, keys "
+                         f"{tuple(keys.shape)}, cand {tuple(cand.shape)}")
+    for nm, x in (("inv_ok", inv_ok), ("explore", explore)):
+        _check(x, "hstep_epilogue." + nm, 1, torch.bool)
+        if x.shape[0] != C:
+            raise ValueError(f"hstep_epilogue: {nm} {tuple(x.shape)} "
+                             f"for {C} candidates")
+    if not 0 <= int(fcount) <= CH:
+        raise ValueError(f"hstep_epilogue: fcount {fcount} outside "
+                         f"[0, {CH}]")
+    if max(C, CH) >= 2**31 - 256:
+        raise ValueError(f"hstep_epilogue: {C} candidates, the kernel's "
+                         f"indices are int32")
+    if en.device.type == "cpu":
+        return hstep_epilogue_twin(en, aok, ov, fcount, keys, cand,
+                                   pack_ovf, ov_pack, inv_ok, explore)
+    if not isinstance(pack_ovf, torch.Tensor):
+        pack_ovf = torch.tensor(bool(pack_ovf), device=en.device)
+    pack_ovf = pack_ovf.reshape(()).to(torch.bool).contiguous()
+    _same_device("hstep_epilogue", en, aok, ov, keys, cand, pack_ovf,
+                 inv_ok, explore)
+    from . import build
+    lib = build.library("hstep")
+    dev = en.device
+    PW = cand.shape[1]
+    threads = int(lib.jmc_hstep_threads())
+    nb = max(1, -(-max(C, CH) // threads))
+    part = torch.empty((5, nb), dtype=torch.int32, device=dev)
+    scalars = torch.empty((6,), dtype=torch.int64, device=dev)
+    dead = torch.empty((CH,), dtype=torch.bool, device=dev)
+    idx = torch.empty((C,), dtype=torch.int32, device=dev)
+    fps = torch.empty((C, 4), dtype=torch.int32, device=dev)
+    rows = torch.empty((C, PW), dtype=torch.int32, device=dev)
+    inv_out = torch.empty((C,), dtype=torch.bool, device=dev)
+    exp_out = torch.empty((C,), dtype=torch.bool, device=dev)
+    rc = lib.jmc_hstep_count(
+        _ptr(en), _ptr(aok), _ptr(ov), _ptr(dead), _ptr(part[0]),
+        _ptr(part[1]), _ptr(part[2]), _ptr(part[3]), ctypes.c_int(A),
+        ctypes.c_int(CH), ctypes.c_int(int(fcount)), _stream())
+    _launch("hstep_epilogue", rc)
+    rc = lib.jmc_hstep_scan(
+        _ptr(part[0]), _ptr(part[1]), _ptr(part[2]), _ptr(part[3]),
+        _ptr(pack_ovf), _ptr(part[4]), _ptr(scalars), ctypes.c_int(nb),
+        ctypes.c_int(int(ov_pack)), _stream())
+    _launch("hstep_epilogue", rc)
+    if C:
+        rc = lib.jmc_hstep_scatter(
+            _ptr(en), _ptr(keys), _ptr(cand), _ptr(inv_ok), _ptr(explore),
+            _ptr(part[4]), _ptr(idx), _ptr(fps), _ptr(rows), _ptr(inv_out),
+            _ptr(exp_out),
+            ctypes.c_int(A), ctypes.c_int(CH), ctypes.c_int(int(fcount)),
+            ctypes.c_int(PW), _stream())
+        _launch("hstep_epilogue", rc)
+    return dict(scalars=scalars, dead=dead, idx=idx, fps=fps, rows=rows,
+                inv_ok=inv_out, explore=exp_out)

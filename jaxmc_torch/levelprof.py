@@ -1,7 +1,7 @@
-"""Where a level-engine run spends its time on the card.
+"""Where a level-engine or host-seen run spends its time on the card.
 
     python -m jaxmc_torch.levelprof SPEC [--cfg F] [--seen MODE] [--por]
-        [--top N]
+        [--host-seen [--chunk N]] [--top N]
 
 Builds TorchExplorer on the CUDA card and runs the search three times:
   1. to warm the kernel build and the allocator;
@@ -15,6 +15,13 @@ Builds TorchExplorer on the CUDA card and runs the search three times:
      around the whole
      step, so each stage's wall (host dispatch plus its device work),
      the rest of the step and the loop around it add up to the run's.
+     With --host-seen the stages are those of a chunk — unpack (K1),
+     expand, keys (K2), predicates (over every candidate), k7 (the
+     epilogue), d2h (the scalar and compacted-row reads), store
+     (native store insert and contains), fallback (the interpreter's
+     arms) — and the step is one chunk (unpack to k7).
+Each measured run starts from a cleared initial-state memo, so it
+encodes, dedups and checks the initial states as a first run does.
 Prints one JSON line with all of it and the card's name and power
 limit.  Runs 2 and 3 add overhead to the wall; the unperturbed wall is
 chip_smoke.py's.
@@ -33,6 +40,10 @@ import torch
 STAGES = ("level.unpack", "level.expand", "level.keys", "level.canon",
           "level.por", "level.merge", "level.predicates")
 STEP = "level.step"
+HS_STAGES = ("hs.unpack", "hs.expand", "hs.keys", "hs.canon",
+             "hs.predicates", "hs.k7", "hs.d2h", "hs.store", "hs.fallback")
+HS_STEP = "hs.step"
+RANGES = STAGES + (STEP,) + HS_STAGES + (HS_STEP,)
 
 
 def _device_events(prof):
@@ -40,7 +51,7 @@ def _device_events(prof):
     stage ranges)."""
     from torch.autograd import DeviceType
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA
-            and e.key not in STAGES and e.key != STEP]
+            and e.key not in RANGES]
 
 
 def _busy_us(events) -> float:
@@ -60,20 +71,33 @@ def _busy_us(events) -> float:
 
 
 def staged_engine(model, timed: bool, **kw):
-    """A TorchExplorer whose level stages are timed on the host with a
-    synchronise after each (timed=True), or only named as profiler
-    ranges.  Returns (engine, {stage: seconds})."""
+    """A TorchExplorer whose level (or, with host_seen=True, chunk)
+    stages are timed on the host with a synchronise after each
+    (timed=True), or only named as profiler ranges.  Returns (engine,
+    {stage: seconds})."""
     from torch.profiler import record_function
+    from . import native_store
     from .backend.bfs import TorchExplorer
-    acc = {k: 0.0 for k in STAGES + (STEP,)}
+    hs = bool(kw.get("host_seen"))
+    P = "hs." if hs else "level."
+    acc = {k: 0.0 for k in RANGES}
+    # the fallback arms unpack, evaluate and key rows themselves: that
+    # time stays theirs, not the step stages'
+    outer = []
 
     def stage(name, f, *a):
         with record_function(name):
-            if not timed:
+            if not timed or outer:
                 return f(*a)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = f(*a)
+            if name == "hs.fallback":
+                outer.append(name)
+            try:
+                out = f(*a)
+            finally:
+                if outer:
+                    outer.pop()
             torch.cuda.synchronize()
             acc[name] += time.perf_counter() - t0
             return out
@@ -83,17 +107,46 @@ def staged_engine(model, timed: bool, **kw):
             return stage(STEP, super().level_step, seen, seen_count,
                          frontier_p, fcount)
 
+        def _hstep(self, frontier_p, fcount):
+            return stage(HS_STEP, super()._hstep, frontier_p, fcount)
+
         def _unpack(self, packed):
-            return stage("level.unpack", super()._unpack, packed)
+            return stage(P + "unpack", super()._unpack, packed)
 
         def _expand(self, frontier):
-            return stage("level.expand", super()._expand, frontier)
+            return stage(P + "expand", super()._expand, frontier)
 
         def _keys_of(self, rows, valid):
-            return stage("level.keys", super()._keys_of, rows, valid)
+            return stage(P + "keys", super()._keys_of, rows, valid)
 
         def _canon(self, rows, valid):
-            return stage("level.canon", super()._canon, rows, valid)
+            return stage(P + "canon", super()._canon, rows, valid)
+
+        def _epilogue(self, *a):
+            return stage("hs.k7", super()._epilogue, *a)
+
+        def _d2h(self, tensors, n=None):
+            return stage("hs.d2h", super()._d2h, tensors, n)
+
+        def _fb_expand_level(self, *a):
+            return stage("hs.fallback", super()._fb_expand_level, *a)
+
+        def _run_host_seen(self):
+            # the store is made inside the search: time its calls there
+            base = native_store.FingerprintStore
+
+            class TimedStore(base):
+                def insert(self, fps):
+                    return stage("hs.store", super().insert, fps)
+
+                def contains(self, fps):
+                    return stage("hs.store", super().contains, fps)
+
+            native_store.FingerprintStore = TimedStore
+            try:
+                return super()._run_host_seen()
+            finally:
+                native_store.FingerprintStore = base
 
         def _por_filter(self, seen, seen_count, ckeys, cvalid, FC):
             return stage("level.por", super()._por_filter, seen,
@@ -106,14 +159,15 @@ def staged_engine(model, timed: bool, **kw):
     eng = Staged(model, **kw)
 
     def staged(f):
-        return lambda rows: stage("level.predicates", f, rows)
+        return lambda rows: stage(P + "predicates", f, rows)
 
     eng.constraint_fns = [(n, staged(f)) for n, f in eng.constraint_fns]
     eng.inv_fns = [(n, staged(f)) for n, f in eng.inv_fns]
     return eng, acc
 
 
-def profile_run(spec, cfg=None, seen_mode="auto", top=12, por=False):
+def profile_run(spec, cfg=None, seen_mode="auto", top=12, por=False,
+                host_seen=False, chunk=2048):
     from torch.profiler import ProfilerActivity, profile
     from .session import load_model
     if not torch.cuda.is_available():
@@ -121,9 +175,13 @@ def profile_run(spec, cfg=None, seen_mode="auto", top=12, por=False):
                            "available")
     kw = dict(store_trace=False, seen_mode=seen_mode, progress_every=1e9,
               por=por)
+    if host_seen:
+        kw.update(host_seen=True, chunk=chunk)
+    stages, step = (HS_STAGES, HS_STEP) if host_seen else (STAGES, STEP)
     eng, _ = staged_engine(load_model(spec, cfg), False, **kw)
     eng.run()                                   # warm: build, allocator
     torch.cuda.synchronize()
+    eng._init_prep = None                       # measure the init too
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
@@ -141,6 +199,7 @@ def profile_run(spec, cfg=None, seen_mode="auto", top=12, por=False):
     eng3, acc = staged_engine(load_model(spec, cfg), True, **kw)
     eng3.run()                                  # same build, warm
     torch.cuda.synchronize()
+    eng3._init_prep = None
     for k in acc:
         acc[k] = 0.0
     t0 = time.time()
@@ -150,7 +209,8 @@ def profile_run(spec, cfg=None, seen_mode="auto", top=12, por=False):
     if (r3.distinct, r3.generated) != (r.distinct, r.generated):
         raise AssertionError("staged run's counts differ")
     # the keys stage calls the canon stage inside it: keep them apart
-    acc["level.keys"] -= acc["level.canon"]
+    p = "hs." if host_seen else "level."
+    acc[p + "keys"] -= acc[p + "canon"]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -164,11 +224,18 @@ def profile_run(spec, cfg=None, seen_mode="auto", top=12, por=False):
         "top_device": [{"name": k[:80], "calls": c, "device_ms": us / 1e3}
                        for k, (us, c) in top_dev],
         "staged_wall_s": wall3,
-        "stage_s": {k: acc[k] for k in STAGES},
-        # the rest of the level step (new-row gathers, the provenance
-        # sort, the verdict scalars) and the host loop around the steps
-        "step_rest_s": acc[STEP] - sum(acc[k] for k in STAGES),
-        "loop_rest_s": wall3 - acc[STEP],
+        "stage_s": {k: acc[k] for k in stages},
+        # the rest of the step (level: new-row gathers, the provenance
+        # sort, the verdict scalars; host-seen: the masks, the SENTINEL
+        # fill) and the host loop around the steps
+        "step_rest_s": acc[step] - sum(
+            acc[k] for k in stages
+            if k in (STAGES if not host_seen else
+                     ("hs.unpack", "hs.expand", "hs.keys", "hs.canon",
+                      "hs.predicates", "hs.k7"))),
+        "loop_rest_s": wall3 - acc[step] - (sum(
+            acc[k] for k in ("hs.d2h", "hs.store", "hs.fallback"))
+            if host_seen else 0.0),
         "card": smi,
     }
 
@@ -181,8 +248,11 @@ def main(argv=None) -> int:
                    choices=("auto", "exact", "fingerprint"))
     p.add_argument("--top", type=int, default=12)
     p.add_argument("--por", action="store_true")
+    p.add_argument("--host-seen", action="store_true")
+    p.add_argument("--chunk", type=int, default=2048)
     a = p.parse_args(argv)
-    out = profile_run(a.spec, a.cfg, a.seen, a.top, a.por)
+    out = profile_run(a.spec, a.cfg, a.seen, a.top, a.por, a.host_seen,
+                      a.chunk)
     print(json.dumps(out))
     return 0
 

@@ -61,6 +61,13 @@ class Telemetry:
     def level(self, depth: int, **fields) -> None:
         self.levels.append(dict(depth=depth, **fields))
 
+    def reset_levels(self, reason: str = "") -> None:
+        """A search restart (hybrid demotion, adaptive relayout) replays
+        from level 0: drop the stale level records so they describe the
+        search that produced the final counts."""
+        self.levels = []
+        self.counter("search.restarts")
+
 
 _CURRENT = Telemetry()
 

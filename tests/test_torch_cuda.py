@@ -1,7 +1,8 @@
-"""The six CUDA kernels of the torch port against their plain PyTorch
-twins, on the card, at the shapes the level engine gives them, and the
-level engine on the card against the corpus pins, with SYMMETRY, VIEW
-and --por among them.
+"""The seven CUDA kernels of the torch port against their plain PyTorch
+twins, on the card, at the shapes the engines give them, the level
+engine on the card against the corpus pins, with SYMMETRY, VIEW and
+--por among them, and the host-seen engine on the card against the
+same run on the CPU.
 
 Needs a CUDA card and nvcc; elsewhere every test skips with the reason.
 Run on the card with:  python -m pytest -m gpu tests/test_torch_cuda.py
@@ -294,3 +295,70 @@ def test_reduction_modes_on_the_card(card, spec, cfg, kw, want, need):
         (b.ok, b.distinct, b.generated, b.diameter)
     if want is not None:
         assert (a.distinct, a.generated) == want
+
+
+@pytest.mark.parametrize("A,CH", [(1, 64), (13, 4096), (33, 65536),
+                                  (7, 1 << 18), (0, 1024)])
+@pytest.mark.parametrize("p", [0.0, 0.4, 1.0])
+def test_hstep_epilogue_matches_twin(card, A, CH, p):
+    """K7 on random masks: A not a multiple of 32, chunks from 64 to
+    2^18, all-invalid and all-valid chunks, a partial last chunk with
+    K2's pack-overflow flag set."""
+    from jaxmc_torch.compile.kernel2 import OV_PACK
+    from jaxmc_torch.kernels import ops
+    rng = np.random.default_rng(A * 7 + CH)
+    C = A * CH
+    for fcount, pack_ovf in ((CH, False), (CH - CH // 3, True)):
+        en = rng.random((A, CH)) < p
+        aok = rng.random((A, CH)) > (0.0 if pack_ovf else 1e-4)
+        ov = np.where(rng.random((A, CH)) < (1e-5 if pack_ovf else 0.0),
+                      rng.integers(1, 3, (A, CH)), 0).astype(np.int32)
+        keys = rng.integers(-2**31, 2**31, (C, 5)).astype(np.int32)
+        cand = rng.integers(-2**31, 2**31, (C, 2)).astype(np.int32)
+        inv = torch.as_tensor(rng.random(C) < 0.9, device=card)
+        exp = torch.as_tensor(rng.random(C) < 0.7, device=card)
+        args = [torch.as_tensor(x, device=card) for x in (en, aok, ov)] + \
+            [fcount, torch.as_tensor(keys, device=card),
+             torch.as_tensor(cand, device=card),
+             torch.tensor(pack_ovf, device=card), OV_PACK, inv, exp]
+        k = ops.hstep_epilogue(*args)
+        t = ops.hstep_epilogue_twin(*args)
+        torch.cuda.synchronize()
+        _eq(k["scalars"], t["scalars"])
+        _eq(k["dead"], t["dead"])
+        nv = int(t["scalars"][0])
+        for name in ("idx", "fps", "rows", "inv_ok", "explore"):
+            _eq(k[name][:nv], t[name][:nv])
+
+
+@pytest.mark.parametrize("spec,cfg,kw", [
+    ("transfer_scaled.tla", None, {}),
+    ("pcal_intro_buggy.tla", None, {"chunk": 64}),
+    ("interparm_toy.tla", "interparm_toy.cfg", {"chunk": 64}),
+    ("msgstoy.tla", "msgstoy.cfg", {"por": True}),
+    # every arm interpreted: the chunk step has no instances
+    (os.path.join(ROOT, "jaxmc_torch", "fixtures", "allinterp.tla"),
+     os.path.join(ROOT, "jaxmc_torch", "fixtures", "allinterp.cfg"), {}),
+])
+def test_host_seen_on_the_card_equals_the_cpu(card, spec, cfg, kw):
+    """The host-seen engine on the card (K1, K2, K7) and on the CPU:
+    verdict, counts, trace, warnings and log lines equal."""
+    from jaxmc_torch.backend.bfs import TorchExplorer
+    from jaxmc_torch.engine.explore import format_trace
+    from jaxmc_torch.kernels import ops
+    from jaxmc_torch.session import load_model
+    res = {}
+    for dev in ("cuda", "cpu"):
+        m = load_model(os.path.join(SPECS, spec),
+                       os.path.join(SPECS, cfg) if cfg else None,
+                       no_deadlock=bool(kw.get("por")))
+        lines = []
+        ops.reset_launches()
+        r = TorchExplorer(m, device=dev, host_seen=True, log=lines.append,
+                          progress_every=1e9, **kw).run()
+        if dev == "cuda":
+            assert ops.LAUNCHES["hstep_epilogue"] > 0, ops.LAUNCHES
+            assert ops.LAUNCHES["rank_merge"] == 0
+        res[dev] = (r.ok, r.generated, r.distinct, r.diameter, r.warnings,
+                    r.violation and format_trace(r.violation), lines)
+    assert res["cuda"] == res["cpu"]

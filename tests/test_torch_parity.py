@@ -106,7 +106,7 @@ def test_constoy_assert_inside_constraint_refused_alike():
     """An Assert inside a CONSTRAINT does not compile (Assert in
     expression position); the reference level engine refuses the spec
     as one needing hybrid execution, and the port refuses it with the
-    same message, naming where its hybrid mode is to come."""
+    same message (host_seen=True runs it)."""
     from jaxmc.compile.vspec import ModeError as JModeError
     from jaxmc_torch.compile.vspec import ModeError as TModeError
 
