@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Smoke run of the torch port on one CUDA card: builds the seven
+"""Smoke run of the torch port on one CUDA card: builds the nine
 hand-written kernels and the native fingerprint store, holds each
 kernel against its plain PyTorch twin at the shapes the engines give
 it, times both, and checks models end to end through the port's entry
-points: the level engine and the chunked host-seen engine.
+points: the level engine, the chunked host-seen engine, the resident
+engine and the out-of-core seen tiers.
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
@@ -54,6 +55,22 @@ Phases (any failure raises; the exit code is then not 0):
                fixtures/allinterp (every arm interpreted) under
                --host-seen on the card equal to the CPU run: verdict,
                counts, trace and every log line
+ 14 resident   transfer_scaled_4p with --resident at chunk 65,536 on
+               kernels and twins: the pins of phase 7; K1, K2, K3, K4,
+               K8 (both sites) and K9 launched and K7 not; wall,
+               generated states/s, peak device memory, the growth lines;
+               then K8 at both sites and K9 against their twins, and
+               timed, at the chunk with the most valid candidates (rows
+               "resident_compact@4p", "resident_compact_explore@4p",
+               "resident_fold@4p")
+ 15 res reduce symtoy_scaled_4p (SYMMETRY) and msgstoy_scaled --por under
+               --resident on the kernels: the level engine's pins and
+               por.* counters; pcal_intro_buggy, batchtoy_bad and
+               portoy_bad --por under --resident on the card equal to
+               the CPU run, log lines included
+ 16 tiers      transfer_scaled_4p --resident --seen-cap 4194304 and
+               ooc_scaled on the level engine (--seen-cap 512, a host
+               budget of 1024 keys): the pins, with spills
 The last three lines are the `nvidia-smi` name and power limit, the
 kernel table as JSON and {"ok": true, "device": {...}}.
 
@@ -113,6 +130,21 @@ POR_PINS_HS = {"por.ample_states": 1807106, "por.full_states": 1207635,
 # the kernels a host-seen search launches, and those it must not
 HS_KERNELS = ("unpack_rows", "keys_of", "hstep_epilogue")
 HS_ABSENT = ("seen_probe", "seen_probe_por", "rank_merge", "por_mask")
+# the resident phases' chunk, and the kernels a resident search launches
+CHUNK_RES = 65536
+RES_KERNELS = ("unpack_rows", "keys_of", "seen_probe", "rank_merge",
+               "resident_compact", "resident_compact_explore",
+               "resident_fold")
+# the CPU formula's starting caps (TorchExplorer._res_start_caps), given
+# to the card and the CPU alike where their runs are compared line by
+# line
+RES_CAPS_CPU = {"SC": 1 << 15, "FCap": 2048, "AccCap": 1 << 15,
+                "VC": 1 << 13}
+# ooc_scaled (jaxmc/corpus.py pins: distinct, generated) and the
+# out-of-core settings of the reference's acceptance run
+OOC_PINS = (3072, 12289)
+SEEN_CAP_4P = 4194304
+SPILL = os.path.join(ROOT, "jaxmc_torch", "kernels", "_build", "spill")
 
 
 def log(msg: str) -> None:
@@ -200,6 +232,14 @@ def capture_busiest_level(cfg, want):
                 got["merge_n"] = n
                 got["merge"] = (seen.clone(), seen_count, keys.clone())
             return super()._rank_merge(seen, seen_count, keys)
+
+        def level_step(self, seen, seen_count, frontier_p, fcount):
+            # the whole step's inputs at the widest level (B.1, B.7)
+            if fcount > got.get("step_n", -1):
+                got["step_n"] = fcount
+                got["step"] = (seen.clone(), seen_count, frontier_p.clone(),
+                               fcount)
+            return super().level_step(seen, seen_count, frontier_p, fcount)
 
     model = load_model(os.path.join(SPECS, "transfer_scaled.tla"), cfg)
     eng = Capture(model, device=DEVICE, store_trace=False,
@@ -376,6 +416,33 @@ def phase_kernels(eng, got, tag="3 kernels", suffix=""):
                 f"new={new}; 3 launches + 2 cumsums; "
                 f"whole rank_merge (sort + K3 + K4) {whole_ms:.4f} ms]")
     return rows_out
+
+
+def phase_torch_bounds(eng, got, tag="7 bounds"):
+    """The two device programs of the level path that are torch, not a
+    hand kernel, timed at the widest level beside their byte bounds:
+    the emitter (B.1: reads FC*W words, writes A*FC*(W+3) words) and
+    the whole level step (B.7: reads the packed frontier and the live
+    seen prefix, writes the merged table and the next frontier with its
+    provenance).  Printed, not in the kernel table."""
+    seen, seen_count, frontier_p, fcount = got["step"]
+    FC, PW = frontier_p.shape
+    A, W, K = eng.A, eng.W, eng.K
+    SC = seen.shape[0]
+    rows = eng._unpack(frontier_p)
+    ms = cuda_time(lambda: eng._expand(rows), reps=3, warm=1)
+    bms, by = _bound((FC * W + A * FC * (W + 3)) * 4, 0)
+    log(f"[{tag}] emitter (B.1) at the widest level: {ms:.4f} ms, bound "
+        f"{bms:.4f} ms ({by}) [A={A} FC={FC} W={W}]")
+    out = eng.level_step(seen, seen_count, frontier_p, fcount)
+    front = int(out["scalars"][7])
+    ms = cuda_time(lambda: eng.level_step(seen, seen_count, frontier_p,
+                                          fcount), reps=3, warm=1)
+    bms, by = _bound((FC * PW + seen_count * K + SC * K
+                      + front * (PW + 1)) * 4, 0)
+    log(f"[{tag}] level step (B.7) at the widest level: {ms:.4f} ms, bound "
+        f"{bms:.4f} ms ({by}) [FC={FC} fcount={fcount} seen_count="
+        f"{seen_count} SC={SC} new={front}]")
 
 
 # ---------------------------------------------------------------------------
@@ -913,6 +980,261 @@ def phase_hybrid():
                                  f"or {r[:3]} != {want}")
 
 
+# ---------------------------------------------------------------------------
+# phases 14-16: the resident engine and the out-of-core tiers
+# ---------------------------------------------------------------------------
+
+def resident_engine(spec, cfg, capture=None, **kw):
+    """A resident TorchExplorer at CHUNK_RES; with `capture` (a dict) it
+    keeps the inputs of K8 (both sites) and K9 at the chunk and level
+    with the most valid candidates (this reads counts back, so only the
+    twin run captures)."""
+    from jaxmc_torch.backend.bfs import TorchExplorer
+    from jaxmc_torch.session import load_model
+
+    def keep(name, n, *xs):
+        if n > capture.get(name + "_n", -1):
+            capture[name + "_n"] = n
+            capture[name] = tuple(x.clone() if isinstance(x, torch.Tensor)
+                                  else x for x in xs)
+
+    class Capture(TorchExplorer):
+        def _compact(self, mask, cap, flim=None, aok=None, ov=None,
+                     site=""):
+            out = super()._compact(mask, cap, flim, aok, ov, site)
+            keep("k8_" + (site or "chunk"), int(out[1][0]), mask, cap,
+                 flim, aok, ov)
+            return out
+
+        def _fold(self, lv, part, pack_ovf, por, keys_c, rows_c, base):
+            keep("k9", int(part[0]) if int(lv["carry"][0]) == 0 else -1,
+                 lv["carry"], lv["bad_row"], part, pack_ovf, por, keys_c,
+                 rows_c, lv["acc_keys"], lv["acc_rows"], lv["frontier"],
+                 base, lv["CH"])
+            return super()._fold(lv, part, pack_ovf, por, keys_c, rows_c,
+                                 base)
+
+    cls = Capture if capture is not None else TorchExplorer
+    kw.setdefault("chunk", CHUNK_RES)
+    return cls(load_model(os.path.join(SPECS, spec), cfg), device=DEVICE,
+               resident=True, store_trace=False, progress_every=1e9, **kw)
+
+
+def phase_resident(tag, spec, cfg, pins, por_pins=None, twins=True,
+                   need=RES_KERNELS, **kw):
+    """The model under --resident at CHUNK_RES on the kernels (and, with
+    twins=True, on the twins, capturing K8's and K9's inputs): counts
+    equal to `pins`, every kernel of `need` launched and K7 not on the
+    kernel run, none on the twin run.  Returns (launch counts, captured
+    inputs, kernel-run summary)."""
+    from jaxmc_torch import obs
+    out, captured = {}, {}
+    for kind, tw in (("kernels", False), ("twins", True)):
+        if tw and not twins:
+            continue
+        obs.reset()
+        lines = []
+        eng, r, wall, counts, peak = run_counted(
+            lambda tw=tw: resident_engine(spec, cfg,
+                                          captured if tw else None,
+                                          twins=tw, log=lines.append, **kw))
+        tel = obs.current()
+        por = {k: v for k, v in list(tel.counters.items())
+               + list(tel.gauges.items()) if k.startswith("por.")}
+        got3 = (r.distinct, r.generated, r.diameter)
+        grows = [ln for ln in lines if ln.startswith("-- ")]
+        log(f"[{tag}] {kind}: ok={r.ok} distinct {r.distinct} generated "
+            f"{r.generated} diameter {r.diameter}; wall {wall:.3f}s, "
+            f"{r.generated / wall:.0f} generated states/s; peak "
+            f"{peak / 2**30:.2f} GiB; {len(tel.levels)} level runs "
+            f"(redone ones included); layout W={eng.W} "
+            f"PW={eng.PW} K={eng.K} A={eng.A}; launches {counts}"
+            + (f"; {por}" if por else "") + (f"; tiers {r.tiers}"
+                                             if r.tiers else ""))
+        for ln in grows:
+            log(f"[{tag}]   {ln}")
+        if not r.ok or got3 != pins:
+            raise AssertionError(f"{tag}: {kind} ok={r.ok} counts {got3} "
+                                 f"!= {pins}")
+        if por_pins is not None:
+            got_pins = {k: por.get(k) for k in por_pins}
+            if got_pins != por_pins:
+                raise AssertionError(f"{tag}: {kind} por counters "
+                                     f"{got_pins} != {por_pins}")
+        if tw and any(counts.values()):
+            raise AssertionError(f"{tag}: twin run launched kernels")
+        if not tw:
+            missing = [k for k in need if counts[k] <= 0]
+            if missing or counts["hstep_epilogue"]:
+                raise AssertionError(f"{tag}: kernels not launched "
+                                     f"{missing}, or K7 launched")
+            out["counts"], out["result"] = counts, (r, wall, peak)
+    return out["counts"], captured, out["result"]
+
+
+def device_ms(fn, key, reps=10):
+    """The device time of the kernels whose names hold `key`, per call
+    of fn, from the profiler: the event times also hold the wrapper's
+    host work when that is the longer of the two."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if key in e.key) / reps / 1e3
+
+
+def check_resident(captured, launches, tag="14 resident"):
+    """K8 at both sites and K9 against their twins, bit for bit, on the
+    captured inputs; timed beside the twins, their byte bounds and, for
+    K8, torch.nonzero doing the same capped compaction."""
+    from jaxmc_torch.compile.kernel2 import OV_PACK
+    from jaxmc_torch.kernels import ops
+    rows = []
+    for site in ("chunk", "explore"):
+        mask, cap, flim, aok, ov = captured["k8_" + site]
+        kw = {} if site == "chunk" else {"site": "explore"}
+        k = ops.resident_compact(mask, cap, flim, aok, ov, **kw)
+        t = ops.resident_compact_twin(mask, cap, flim, aok, ov)
+        torch.cuda.synchronize()
+        err = max(_max_abs(k[0], t[0]), _max_abs(k[1], t[1]))
+        m2 = mask if mask.dim() == 2 else mask.reshape(1, -1)
+        A, CH = m2.shape
+        C, n = A * CH, int(t[1][0])
+        fl = CH if flim is None else flim
+        fv = torch.arange(CH, device=mask.device) < fl
+
+        def library():
+            idx = torch.nonzero((m2 & fv[None, :]).reshape(-1)).flatten()
+            return idx[:cap], idx.numel()
+        if _max_abs(library()[0], k[0][:min(n, cap)]):
+            raise AssertionError("torch.nonzero yardstick disagrees")
+        per = 6 if site == "chunk" else 1
+        name = "resident_compact" + ("" if site == "chunk" else "_explore")
+        dev_ms = device_ms(lambda: ops.resident_compact(mask, cap, flim,
+                                                        aok, ov, **kw),
+                           "compact_")
+        rows.append(_row(
+            tag, name + "@4p", "jaxmc_torch/kernels/csrc/resident.cu",
+            "jaxmc/backend/bfs.py:2275", launches[name], err,
+            cuda_time(lambda: ops.resident_compact(mask, cap, flim, aok, ov,
+                                                   **kw)),
+            cuda_time(lambda: ops.resident_compact_twin(mask, cap, flim, aok,
+                                                        ov), reps=3),
+            # en, aok and ov of every candidate (the mask alone at the
+            # explore site) read once; cap indices written
+            C * per + cap * 4 + 48, C * 8,
+            library_ms=cuda_time(library),
+            note=f" [{site} site: A={A} CH={CH} flim={fl} set={n} "
+                 f"cap={cap}; 3 launches, device time {dev_ms:.4f} ms]"))
+    (carry, bad_row, part, povf, por, keys_c, rows_c, acc_keys, acc_rows,
+     frontier, base, CH) = captured["k9"]
+    VC, K = keys_c.shape
+    PW = rows_c.shape[1]
+    out = {}
+    for name, f in (("kernel", ops.resident_fold),
+                    ("twin", ops.resident_fold_twin)):
+        c, b, ak, ar = (x.clone() for x in (carry, bad_row, acc_keys,
+                                            acc_rows))
+        f(c, b, part, povf, por, keys_c, rows_c, ak, ar, frontier, base,
+          CH, True, OV_PACK)
+        torch.cuda.synchronize()
+        out[name] = (c, b, ak, ar)
+    err = max(_max_abs(a, b) for a, b in zip(out["kernel"], out["twin"]))
+    c, b, ak, ar = (x.clone() for x in (carry, bad_row, acc_keys, acc_rows))
+
+    def run(f):
+        # each call starts from the captured carry (a 56-byte copy)
+        c.copy_(carry)
+        f(c, b, part, povf, por, keys_c, rows_c, ak, ar, frontier, base,
+          CH, True, OV_PACK)
+    rows.append(_row(
+        tag, "resident_fold@4p", "jaxmc_torch/kernels/csrc/resident.cu",
+        "jaxmc/backend/bfs.py:2275", launches["resident_fold"], err,
+        cuda_time(lambda: run(ops.resident_fold)),
+        cuda_time(lambda: run(ops.resident_fold_twin), reps=3),
+        # the VC block's keys and rows read and written once
+        2 * VC * (K + PW) * 4, VC * (K + PW),
+        note=f" [VC={VC} K={K} PW={PW} vcnt={int(part[0])} "
+             f"AccCap={acc_keys.shape[0]}; 2 launches, device time "
+             f"{device_ms(lambda: run(ops.resident_fold), 'fold_'):.4f} ms "
+             f"(the carry copy apart); library null: no PyTorch call "
+             f"appends a block guarded by a device flag]"))
+    return rows
+
+
+def phase_resident_verdicts(tag="15 res reduce"):
+    """pcal_intro_buggy, batchtoy_bad and portoy_bad --por under
+    --resident on the card and on the CPU, from the same starting caps:
+    verdict, counts, violation state, warnings and every log line."""
+    from jaxmc_torch.backend.bfs import TorchExplorer
+    from jaxmc_torch.kernels import ops
+    from jaxmc_torch.session import load_model
+    cases = [("pcal_intro_buggy", "pcal_intro_buggy.tla", None, {},
+              ("assert", 10250, 6740)),
+             ("batchtoy_bad", "batchtoy.tla", "batchtoy_bad.cfg", {},
+              ("invariant", 6, 6)),
+             ("portoy_bad", "portoy.tla", "portoy_bad.cfg", {"por": True},
+              ("invariant", None, None))]
+    for name, spec, cfg, kw, want in cases:
+        res = {}
+        for dev in (DEVICE, "cpu"):
+            lines = []
+            ops.reset_launches()
+            m = load_model(os.path.join(SPECS, spec),
+                           os.path.join(SPECS, cfg) if cfg else None)
+            r = TorchExplorer(m, device=dev, resident=True,
+                              res_caps=RES_CAPS_CPU, log=lines.append,
+                              progress_every=1e9, **kw).run()
+            if dev == DEVICE and ops.LAUNCHES["resident_fold"] <= 0:
+                raise AssertionError(f"{name}: K9 not launched")
+            res[dev] = _summary(r) + (tuple(r.warnings), tuple(lines))
+        r = res[DEVICE]
+        log(f"[{tag}] {name} --resident: {r[4]} {r[5]}, generated {r[1]} "
+            f"distinct {r[2]}; cuda == cpu: {res[DEVICE] == res['cpu']}")
+        if res[DEVICE] != res["cpu"] or r[4] != want[0] or (
+                want[1] is not None and (r[1], r[2]) != want[1:]):
+            raise AssertionError(f"{name}: cuda run differs from cpu run "
+                                 f"or {r[4]} {r[1]}/{r[2]} != {want}")
+
+
+def phase_tiers(pins_4p, tag="16 tiers"):
+    """The out-of-core seen set on the card: transfer_scaled_4p under
+    --resident with a device seen cap below its state count (to phase
+    7's counts, `pins_4p`), and ooc_scaled on the level engine; both
+    reach their pins, spilling."""
+    import shutil
+    from jaxmc_torch.backend.bfs import TorchExplorer
+    from jaxmc_torch.session import load_model
+    shutil.rmtree(SPILL, ignore_errors=True)
+    try:
+        counts, _, (r, wall, peak) = phase_resident(
+            tag, "transfer_scaled.tla", CFG_4P, pins_4p, twins=False,
+            seen_cap=SEEN_CAP_4P, spill_dir=os.path.join(SPILL, "4p"))
+        if not r.tiers or r.tiers["spills"] <= 0:
+            raise AssertionError(f"{tag}: transfer_scaled_4p did not spill")
+        lines = []
+        eng, r, wall, counts, peak = run_counted(lambda: TorchExplorer(
+            load_model(os.path.join(SPECS, "ooc_scaled.tla"),
+                       os.path.join(SPECS, "ooc_scaled.cfg")),
+            device=DEVICE, seen_cap=512, host_tier_keys=1024,
+            log=lines.append, progress_every=1e9, store_trace=False,
+            spill_dir=os.path.join(SPILL, "ooc")))
+        log(f"[{tag}] ooc_scaled (level engine, seen cap 512, host budget "
+            f"1024 keys): distinct {r.distinct} generated {r.generated}; "
+            f"wall {wall:.3f}s; tiers {r.tiers}; launches {counts}")
+        if not r.ok or (r.distinct, r.generated) != OOC_PINS or \
+                not r.tiers or r.tiers["spills"] <= 0 or \
+                r.tiers["disk_keys"] <= 0:
+            raise AssertionError(f"{tag}: ooc_scaled {r.distinct}/"
+                                 f"{r.generated} tiers {r.tiers}")
+    finally:
+        shutil.rmtree(SPILL, ignore_errors=True)
+
+
 def main() -> int:
     t_start = time.time()
     name, count, smi = phase_device()
@@ -933,6 +1255,7 @@ def main() -> int:
     counts_4p, launches_4p = phase_real_size()
     eng, got = capture_busiest_level(CFG_4P, counts_4p)
     rows_4p = phase_kernels(eng, got, "7 kernels", "@4p")
+    phase_torch_bounds(eng, got)
     del eng, got
     for row in rows_4p:
         base = row["name"].replace("@4p", "").replace("_fp128", "")
@@ -970,6 +1293,20 @@ def main() -> int:
     phase_host_seen("12 hs por", "msgstoy.tla", CFG_POR, PINS_HS_POR,
                     POR_PINS_HS, por=True)
     phase_hybrid()
+
+    counts, captured, _ = phase_resident("14 resident", "transfer_scaled.tla",
+                                         CFG_4P, counts_4p)
+    table += check_resident(captured, counts)
+    del captured
+    no_keys = tuple(k for k in RES_KERNELS if k != "keys_of")
+    phase_resident("15 res reduce", "symtoy_scaled.tla", CFG_SYM, PINS_SYM,
+                   twins=False, need=no_keys + ("canon_rows",
+                                                "keys_of_canon"))
+    phase_resident("15 res reduce", "msgstoy.tla", CFG_POR, PINS_POR,
+                   POR_PINS, twins=False, por=True,
+                   need=RES_KERNELS + ("seen_probe_por", "por_mask"))
+    phase_resident_verdicts()
+    phase_tiers(counts_4p)
     log(f"[done] {time.time() - t_start:.1f}s")
     print(f"{smi}")
     print(json.dumps({"kernels": table}))

@@ -1,7 +1,8 @@
-r"""The level engine and the host-seen engine on the card: TorchExplorer.
+r"""The level, host-seen and resident engines on the card: TorchExplorer.
 
 The port of jaxmc/backend/bfs.py's level mode (TpuExplorer.run without
-resident or host_seen) and of its host_seen mode.  In the level mode
+resident or host_seen), of its host_seen mode and of its resident mode,
+with the out-of-core seen tiers.  In the level mode
 the frontier and the seen table live on the device; each BFS level is
 one step:
 
@@ -43,6 +44,24 @@ interpreter (_fb_expand_level and the host predicate loops), and a
 guard demotion that fires mid-search relayouts or demotes its arm and
 restarts (run / _run_hybrid).
 
+resident=True runs the resident engine (_run_resident): the seen
+table, the frontier and a level's candidate accumulator stay on the
+device.  Per level the host enqueues ceil(fcount / chunk) chunk bodies
+(_res_chunk: K1, the emitter, K8 resident_compact — the verdict
+partials and the first VC valid candidates — the VC gather, K2, the
+POR branch, K9 resident_fold, which appends the block and folds the
+status only while the device status is ST_CONTINUE) and the level end
+(_res_level: the rank merge of the accumulator, the CONSTRAINTs, K8
+over the explore mask, the invariants), then reads one summary vector.
+On an ST_OVF_* status it keeps the pre-level tensors, grows the named
+capacity and redoes the level.  No traces: a violation names the state
+it reached.
+
+seen_cap (the level and resident engines) caps the device seen table:
+past it the sorted table spills to host-RAM and disk runs
+(backend/tiers.py) and each level's new rows are probed against them
+before they are counted or explored.
+
 Modes this port does not run raise ModeError with the ROADMAP item
 that ports them.
 """
@@ -66,6 +85,9 @@ from ..compile.vspec import Bounds, CompileError, ModeError
 from ..engine.explore import CheckResult, Violation
 from ..engine.simulate import sample_states
 from ..kernels import ops
+from ..kernels.ops import (ST_ASSERT, ST_CONTINUE, ST_DEADLOCK, ST_DONE,
+                           ST_INV, ST_OVF_ACC, ST_OVF_FRONT, ST_OVF_LANES,
+                           ST_OVF_SEEN, ST_OVF_VC, ST_TRUNC)
 from ..sem.enumerate import enumerate_init
 from ..sem.modules import Model
 
@@ -144,8 +166,8 @@ def resolve_device(device) -> torch.device:
 
 class TorchExplorer:
     """Level-synchronous BFS over the device-resident seen table, or
-    (host_seen=True) over the native host fingerprint store in
-    chunks."""
+    (host_seen=True) over the native host fingerprint store in chunks,
+    or (resident=True) with the whole level loop on the device."""
 
     def __init__(self, model: Model, log: Callable[[str], None] = None,
                  max_states: Optional[int] = None, store_trace: bool = True,
@@ -157,7 +179,11 @@ class TorchExplorer:
                  host_seen: bool = False, chunk: int = 2048,
                  extra_samples: Optional[List[Dict[str, Any]]] = None,
                  relayouts_left: int = 3,
-                 seen_cap: Optional[int] = None):
+                 seen_cap: Optional[int] = None,
+                 spill_dir: Optional[str] = None,
+                 host_tier_keys: Optional[int] = None,
+                 resident: bool = False,
+                 res_caps: Optional[Dict[str, int]] = None):
         # twins=True runs the kernels' plain PyTorch twins on the same
         # device: the parity oracle for the CUDA path (tests and
         # chip_smoke.py pass it; nothing else does)
@@ -175,6 +201,11 @@ class TorchExplorer:
         # mode that runs hybrid specs
         self.host_seen = bool(host_seen)
         self.chunk = chunk
+        # resident: the whole level loop stays on the device and the host
+        # reads one summary vector per level (_run_resident); res_caps
+        # are the caller's starting capacities (SC, FCap, AccCap, VC)
+        self.resident = bool(resident)
+        self._res_caps_hint = dict(res_caps) if res_caps else None
         # ADAPTIVE RELAYOUT (hybrid, host_seen): when a compile-recovery
         # demotion fires because a value SHAPE was never observed by the
         # layout sampler, the engine re-samples from the abort-time
@@ -192,7 +223,7 @@ class TorchExplorer:
         self.por_reason: Optional[str] = None
         self._por_memo: Any = _POR_UNSET
         self._por_stats = {"ample": 0, "expanded": 0, "masked": 0}
-        self._refuse_modes(model)
+        self._refuse_modes(model, self.resident, self.host_seen)
 
         tel = obs.current()
         base_ctx = model.ctx()
@@ -382,6 +413,11 @@ class TorchExplorer:
         self.key_width = self.view_width if self.view_fn is not None \
             else self.PW
         self.fp_mode = self.key_width > FP_THRESHOLD
+        if self.resident:
+            # resident dedup keys are always 128-bit fingerprints: the
+            # merge is built for a fixed 4-word key; no traces
+            self.store_trace = False
+            self.fp_mode = True
         if self.host_seen:
             from .. import native_store
             if not native_store.is_available():
@@ -395,7 +431,7 @@ class TorchExplorer:
         if seen_mode == "fingerprint":
             self.fp_mode = True
         elif seen_mode == "exact" and self.fp_mode:
-            if self.host_seen:
+            if self.host_seen or self.resident:
                 raise ModeError(
                     "--seen exact is incompatible with the resident/"
                     "host_seen modes (their dedup machinery is "
@@ -409,14 +445,21 @@ class TorchExplorer:
         # dedup key lanes: an explicit validity lane FIRST (0=valid row,
         # 1=invalid), then the key basis or its 4-word fingerprint
         self.K = (4 if self.fp_mode else self.key_width) + 1
-        # the out-of-core device tiers are not ported (ROADMAP A.9); the
-        # host store needs none (the run logs that the cap is ignored)
+        # out-of-core seen set: a device seen cap (rows of the key table;
+        # JAXMC_SEEN_CAP is the test knob) turns device growth into a
+        # spill of the sorted device prefix to host-RAM and disk runs
+        # (backend/tiers.py), probed before rows are counted or explored;
+        # counts stay those of the uncapped run.  The host-seen engine's
+        # store needs none (its run logs that the cap is ignored)
         env_cap = os.environ.get("JAXMC_SEEN_CAP")
         self.seen_cap = int(seen_cap if seen_cap is not None
                             else (env_cap if env_cap else 0)) or None
-        if seen_cap and not self.host_seen:
-            raise ModeError("--seen-cap (out-of-core tiers) is not ported "
-                            "to the torch engine yet (ROADMAP A.9)")
+        if self.seen_cap is not None:
+            self.seen_cap = _pow2_at_least(self.seen_cap, lo=64)
+            tel.gauge("tier.device_cap", self.seen_cap)
+        self.spill_dir = spill_dir or os.environ.get("JAXMC_SPILL_DIR")
+        self.host_tier_keys = host_tier_keys
+        self._tiers = None  # created at the first spill
         self.pt = self.plan.tensors(self.device)
         tel.gauge("expand.compiled_instances", self.A)
         tel.gauge("layout.width_lanes", self.W)
@@ -429,7 +472,28 @@ class TorchExplorer:
         tel.gauge("backend.device", str(self.device))
 
     @staticmethod
-    def _refuse_modes(model: Model) -> None:
+    def _refuse_modes(model: Model, resident: bool, host_seen: bool) -> None:
+        if resident and host_seen:
+            raise ModeError(
+                "resident and host_seen are mutually exclusive: "
+                "resident keeps the seen-set on device, host_seen "
+                "keeps it in the native host store")
+        if resident and model.properties:
+            # the reference's own refusals for this mode take precedence
+            # over the port's PROPERTY refusal
+            from ..engine.liveness import collect_obligations
+            from ..engine.refinement import build_refinement_checkers
+            refiners, _ = build_refinement_checkers(model)
+            if refiners:
+                raise ModeError(
+                    "resident mode cannot check refinement PROPERTYs "
+                    "(stepwise host checking needs the edge stream) - "
+                    "use the level/host_seen device modes")
+            if collect_obligations(model, refiners)[0]:
+                raise ModeError(
+                    "resident mode cannot check temporal properties "
+                    "(the behavior graph stays on device) - use the "
+                    "level/host_seen device modes")
         if model.properties:
             raise ModeError("temporal and refinement PROPERTYs are not "
                             "ported to the torch level engine yet "
@@ -596,6 +660,10 @@ class TorchExplorer:
         front_rows = new_rows[perm4]
         front_rows_u = new_rows_u[perm4]
         front_prov = new_prov[perm4].to(torch.int32)
+        # tiered runs stream each kept row's key, so the cold-tier probe
+        # never recomputes keys
+        front_keys = ckeys[safe_cidx][perm4] if self._tiers is not None \
+            else None
         frontvalid = torch.arange(C, device=dev) < explore_count
 
         # invariants over the kept (explored) states only; the first
@@ -633,7 +701,8 @@ class TorchExplorer:
             + por_scalars)
         return dict(scalars=scalars, seen=rm["seen2"],
                     front_rows=front_rows, front_prov=front_prov,
-                    dead=dead, assert_bad=assert_bad)
+                    front_keys=front_keys, dead=dead,
+                    assert_bad=assert_bad)
 
     # ---- the search ----
 
@@ -714,6 +783,8 @@ class TorchExplorer:
         return "; ".join(parts) if parts else "no bounded containers"
 
     def run(self) -> CheckResult:
+        if self.resident:
+            return self._run_resident()
         if self.host_seen:
             return self._run_hybrid()
         t0 = time.time()
@@ -772,10 +843,31 @@ class TorchExplorer:
             C = self.A * FC
             if seen_count + C > SC:
                 SC2 = _pow2_at_least(seen_count + C, SC)
-                pad = torch.full((SC2 - SC, K), int(SENTINEL),
-                                 dtype=torch.int32, device=dev)
-                seen = torch.cat([seen, pad])
-                SC = SC2
+                if self.seen_cap is not None and SC2 > self.seen_cap \
+                        and seen_count > 0:
+                    # device tier full: compact the sorted prefix out to
+                    # the cold tiers and restart the device table empty
+                    # instead of growing past the cap; kept rows are
+                    # cold-probed after each step
+                    with tel.span("tier.spill", keys=seen_count):
+                        self._tier_spill_prefix(
+                            seen[:seen_count].cpu().numpy(), seen_count)
+                    seen = torch.full((SC, K), int(SENTINEL),
+                                      dtype=torch.int32, device=dev)
+                    seen_count = 0
+                    SC2 = _pow2_at_least(C, SC)
+                    if SC2 > max(SC, self.seen_cap):
+                        # the level's candidate block alone exceeds the
+                        # cap: the merge needs seen_count + C <= SC
+                        self.log(f"-- tier: device cap "
+                                 f"{self.seen_cap} < one level's "
+                                 f"candidate block ({C}); growing "
+                                 f"anyway (soft cap)")
+                if SC2 > SC:
+                    pad = torch.full((SC2 - SC, K), int(SENTINEL),
+                                     dtype=torch.int32, device=dev)
+                    seen = torch.cat([seen, pad])
+                    SC = SC2
             obs.note_buffer("level.seen", SC * K * 4)
             obs.note_buffer("level.frontier", FC * PW * 4)
             out = self.level_step(seen, seen_count, frontier, fcount)
@@ -818,22 +910,51 @@ class TorchExplorer:
                 for name, v in zip(("ample", "expanded", "masked"),
                                    vals[12:]):
                     self._por_stats[name] += v
-            distinct += front_count
+            # cold-tier membership filter: rows the device merge called
+            # new may duplicate keys spilled to the host/disk tiers —
+            # drop them (order-preserving) before they are counted,
+            # traced or explored: exactly the rows the uncapped run's
+            # merge would have dropped
+            tier_keep = fr_host = fp_host = None
+            if self._tiers is not None and self._tiers.active \
+                    and front_count:
+                fkeys = out["front_keys"][:front_count, 1:].cpu().numpy()
+                dup = self._tiers.probe(fkeys)
+                if dup.any():
+                    tier_keep = ~dup
+                    fr_host = np.ascontiguousarray(
+                        out["front_rows"][:front_count].cpu().numpy()
+                        [tier_keep])
+                    fp_host = np.ascontiguousarray(
+                        out["front_prov"][:front_count].cpu().numpy()
+                        [tier_keep])
+                self._tiers.publish_gauges(seen_count2)
+            kept_count = len(fr_host) if fr_host is not None \
+                else front_count
+            distinct += kept_count
             seen = out["seen"]
             seen_count = seen_count2
             tel.level(depth, frontier=fcount, generated=gen,
-                      new=front_count, distinct=distinct, seen=seen_count,
+                      new=kept_count, distinct=distinct, seen=seen_count,
                       wall_s=round(time.time() - lvl_t0, 6))
             self._fp_occupancy = seen_count
 
             if self.store_trace:
                 # trace levels hold the kept states; every kept state is
                 # explored, so the frontier map is the identity
-                trace_levels.append(
-                    (out["front_rows"][:front_count].cpu().numpy(),
-                     out["front_prov"][:front_count].cpu().numpy(), FC))
-                frontier_maps.append(np.arange(front_count, dtype=np.int64))
+                if fr_host is not None:
+                    trace_levels.append((fr_host, fp_host, FC))
+                else:
+                    trace_levels.append(
+                        (out["front_rows"][:front_count].cpu().numpy(),
+                         out["front_prov"][:front_count].cpu().numpy(), FC))
+                frontier_maps.append(np.arange(kept_count, dtype=np.int64))
             if inv_any:
+                if tier_keep is not None:
+                    # a tier duplicate never violates (its state was
+                    # checked when first admitted): re-index the
+                    # violating row into the filtered level
+                    inv_idx = int(np.sum(tier_keep[:inv_idx]))
                 nm = self.inv_fns[inv_which][0]
                 trace = self._trace_to(trace_levels, frontier_maps,
                                        depth + 1, inv_idx, from_new=True)
@@ -850,13 +971,16 @@ class TorchExplorer:
                     trunc_reason=f"max_states: distinct {distinct} >= "
                                  f"limit {self.max_states}")
 
-            if front_count > FC:
-                FC = _pow2_at_least(front_count, FC)
+            if kept_count > FC:
+                FC = _pow2_at_least(kept_count, FC)
             nf = torch.full((FC, PW), int(SENTINEL), dtype=torch.int32,
                             device=dev)
-            nf[:front_count] = out["front_rows"][:front_count]
+            if fr_host is not None:
+                nf[:kept_count] = torch.as_tensor(fr_host, device=dev)
+            else:
+                nf[:front_count] = out["front_rows"][:front_count]
             frontier = nf
-            fcount = front_count
+            fcount = kept_count
             del out
 
             now = time.time()
@@ -873,6 +997,479 @@ class TorchExplorer:
                  f"{depth}.")
         return self._mk_result(True, distinct, generated, depth - 1, t0,
                                warnings)
+
+    # ---- the resident engine ----
+
+    def _compact(self, mask, cap: int, flim=None, aok=None, ov=None,
+                 site: str = ""):
+        f = ops.resident_compact_twin if self.twins else ops.resident_compact
+        return f(mask, cap, flim, aok, ov, site)
+
+    def _fold(self, lv: dict, part, pack_ovf, por, keys_c, rows_c,
+              base: int) -> None:
+        f = ops.resident_fold_twin if self.twins else ops.resident_fold
+        f(lv["carry"], lv["bad_row"], part, pack_ovf, por, keys_c, rows_c,
+          lv["acc_keys"], lv["acc_rows"], lv["frontier"], base, lv["CH"],
+          self.model.check_deadlock, OV_PACK)
+
+    def _res_por(self, lv: dict, keys_c, rows_c, vmask, cidx, cvalid):
+        """The persistent-set filter of a resident chunk (bfs.py:2367-
+        2394): K3 probes the compacted keys against the PRE-level seen
+        table, the verdicts scatter back onto the dense [A*CH] grid, K6
+        picks each slot's ample arm, and the non-ample candidates become
+        the invalid key and SENTINEL rows.  Returns (keys_c, rows_c,
+        deltas int64 [n_ample, n_expanded, n_masked])."""
+        plan = self._por_memo
+        dev = keys_c.device
+        if self.twins:
+            found_c, _ = ops.seen_probe_twin(lv["seen"], lv["seen_count"],
+                                             keys_c)
+        else:
+            found_c, _ = ops.seen_probe(lv["seen"], lv["seen_count"],
+                                        keys_c, site="por")
+        ci = cidx.to(torch.int64)
+        found_g = torch.zeros(cvalid.shape[0], dtype=torch.bool,
+                              device=dev).scatter_(0, ci, found_c & vmask)
+        mask_f = ops.por_mask_twin if self.twins else ops.por_mask
+        keep_g, n_amp, n_exp, _ = mask_f(found_g, cvalid, plan["inst_arm_t"],
+                                         plan["arm_safe_t"], self.A,
+                                         lv["CH"])
+        keep_c = keep_g.index_select(0, ci) & vmask
+        n_masked = (vmask & ~keep_c).sum()
+        # the invalid key [1, SENTINEL...], made without a host write
+        inv_key = torch.cat([
+            torch.ones((1, 1), dtype=torch.int32, device=dev),
+            torch.full((1, self.K - 1), int(SENTINEL), dtype=torch.int32,
+                       device=dev)], dim=1)
+        keys_c = torch.where(keep_c[:, None], keys_c, inv_key)
+        rows_c = torch.where(keep_c[:, None], rows_c,
+                             torch.full((), int(SENTINEL), dtype=torch.int32,
+                                        device=dev))
+        return keys_c, rows_c, torch.stack(
+            [n_amp.to(torch.int64), n_exp.to(torch.int64),
+             n_masked.to(torch.int64)])
+
+    def _res_chunk(self, lv: dict, base: int) -> None:
+        """One chunk of CH frontier rows (bfs.py:2313-2427): K1, the
+        emitter, K8 over the valid grid (the verdict partials and the
+        first VC valid candidates), their gather (SENTINEL past vcnt),
+        K2 over the VC block, the POR branch, then K9, which folds the
+        chunk into the level's device carry only while its status is
+        ST_CONTINUE.  Nothing is read back to the host."""
+        A, W, CH, VC = self.A, self.W, lv["CH"], lv["VC"]
+        dev = lv["frontier"].device
+        chunk = self._unpack(lv["frontier"][base:base + CH])
+        en, aok, ov, succ = self._expand(chunk)
+        flim = min(lv["fcount"] - base, CH)
+        cidx, part = self._compact(en, VC, flim, aok, ov)
+        vmask = torch.arange(VC, device=dev) < part[0]
+        rows_cu = succ.reshape(A * CH, W).index_select(
+            0, cidx.to(torch.int64))
+        del succ
+        rows_cu = torch.where(vmask[:, None], rows_cu,
+                              torch.full((), int(SENTINEL),
+                                         dtype=torch.int32, device=dev))
+        keys_c, rows_c, pack_ovf = self._keys_of(rows_cu, vmask)
+        por = None
+        if isinstance(self._por_memo, dict):
+            fv = torch.arange(CH, device=dev) < flim
+            cvalid = (en & fv[None, :]).reshape(A * CH)
+            keys_c, rows_c, por = self._res_por(lv, keys_c, rows_c, vmask,
+                                                cidx, cvalid)
+        self._fold(lv, part, pack_ovf, por, keys_c, rows_c, base)
+
+    def _res_level(self, seen, seen_count: int, frontier, fcount: int,
+                   caps: Dict[str, int], CH: int):
+        """One resident level (bfs.py:2307-2516): ceil(fcount / CH) chunk
+        bodies enqueued back to back, then the level end — the
+        seen-capacity check, the rank merge of all AccCap accumulator
+        rows, the new rows in key order, the CONSTRAINTs, K8 over the
+        explore mask capped at FCap, the invariants over the new
+        frontier.  Returns (summary int64 [9 + PW] on the device: stat,
+        seen_count, fcount, gen, ovcode, which, the three POR deltas,
+        then the bad row; seen2; the new frontier [FCap, PW])."""
+        dev = self.device
+        K, PW = self.K, self.PW
+        SC, FCap, AccCap = seen.shape[0], frontier.shape[0], caps["AccCap"]
+        sent = int(SENTINEL)
+        lv = dict(seen=seen, seen_count=seen_count, frontier=frontier,
+                  fcount=fcount, CH=CH, VC=caps["VC"],
+                  acc_keys=torch.full((AccCap, K), sent, dtype=torch.int32,
+                                      device=dev),
+                  acc_rows=torch.full((AccCap, PW), sent, dtype=torch.int32,
+                                      device=dev),
+                  carry=torch.zeros(len(ops.CARRY), dtype=torch.int64,
+                                    device=dev),
+                  bad_row=torch.full((PW,), sent, dtype=torch.int32,
+                                     device=dev))
+        for base in range(0, fcount, CH):
+            self._res_chunk(lv, base)
+        carry = lv["carry"]
+        # conservative seen-capacity check BEFORE the merge: every
+        # accumulated candidate could be new
+        stat = torch.where((carry[0] == ST_CONTINUE)
+                           & (seen_count + carry[1] > SC), ST_OVF_SEEN,
+                           carry[0])
+        rm = self._rank_merge(seen, seen_count, lv["acc_keys"])
+        nvalid = torch.arange(AccCap, device=dev) < rm["new_count"]
+        new_rows = lv["acc_rows"].index_select(
+            0, rm["nk_sidx"].clamp(0, AccCap - 1).to(torch.int64))
+        new_rows = torch.where(nvalid[:, None], new_rows,
+                               torch.full((), sent, dtype=torch.int32,
+                                          device=dev))
+        explore = nvalid
+        if self.constraint_fns:
+            new_rows_u = self._unpack(new_rows)
+            for _nm, f in self.constraint_fns:
+                explore = explore & f(new_rows_u)
+        fidx, fpart = self._compact(explore, FCap, site="explore")
+        explore_count = fpart[0]
+        stat = torch.where((stat == ST_CONTINUE) & (explore_count > FCap),
+                           ST_OVF_FRONT, stat)
+        frontvalid = torch.arange(FCap, device=dev) < explore_count
+        front_rows = new_rows.index_select(0, fidx.to(torch.int64))
+        front_rows = torch.where(frontvalid[:, None], front_rows,
+                                 torch.full((), sent, dtype=torch.int32,
+                                            device=dev))
+        # the first violated invariant in declaration order, its first
+        # row of the new frontier (merge order)
+        inv_any = torch.zeros((), dtype=torch.bool, device=dev)
+        inv_idx = torch.zeros((), dtype=torch.int64, device=dev)
+        which = torch.full((), -1, dtype=torch.int64, device=dev)
+        if self.inv_fns:
+            front_u = self._unpack(front_rows)
+            for wi, (_nm, f) in enumerate(self.inv_fns):
+                bad = frontvalid & ~f(front_u)
+                any_ = bad.any()
+                first = any_ & ~inv_any
+                inv_idx = torch.where(first,
+                                      torch.argmax(bad.to(torch.int32)),
+                                      inv_idx)
+                which = torch.where(first, wi, which)
+                inv_any = inv_any | any_
+        inv_row = front_rows.index_select(0, inv_idx.reshape(1))[0]
+        bad_row = torch.where(inv_any & (stat == ST_CONTINUE), inv_row,
+                              lv["bad_row"])
+        stat = torch.where((stat == ST_CONTINUE) & inv_any, ST_INV, stat)
+        summary = torch.cat([
+            torch.stack([stat, rm["seen_count2"].to(torch.int64),
+                         explore_count, carry[2], carry[3], which,
+                         carry[4], carry[5], carry[6]]),
+            bad_row.to(torch.int64)])
+        return summary, rm["seen2"], front_rows
+
+    def _res_read(self, summary) -> List[int]:
+        """The one host read of a resident level."""
+        return [int(x) for x in summary.cpu().tolist()]
+
+    def _res_start_caps(self, n_init: int, CH: int) -> Dict[str, int]:
+        """The resident capacities (bfs.py:2969-3016): the caller's
+        res_caps rounded to powers of two, else the card's defaults or
+        the CPU formula; then the seen cap and the floors and invariants
+        no start may undercut."""
+        if self._res_caps_hint:
+            h = self._res_caps_hint
+            caps = {"SC": _pow2_at_least(int(h.get("SC", 1)), lo=256),
+                    "FCap": _pow2_at_least(int(h.get("FCap", 1)), lo=64),
+                    "AccCap": _pow2_at_least(int(h.get("AccCap", 1)),
+                                             lo=128),
+                    "VC": _pow2_at_least(int(h.get("VC", 1)), lo=64)}
+        elif self.device.type != "cpu":
+            caps = {"SC": 1 << 20, "FCap": max(1 << 16, CH),
+                    "AccCap": 1 << 17, "VC": 1 << 14}
+        else:
+            caps = {"SC": _pow2_at_least(max(4 * n_init, 1), lo=1 << 15),
+                    "FCap": CH, "AccCap": 1 << 15, "VC": 1 << 13}
+        if self.seen_cap is not None:
+            caps["SC"] = min(caps["SC"], self.seen_cap)
+        caps["SC"] = max(caps["SC"],
+                         _pow2_at_least(max(4 * n_init, 1), lo=256))
+        caps["FCap"] = max(caps["FCap"], _pow2_at_least(max(n_init, 1),
+                                                        lo=CH))
+        # VC never exceeds the dense grid A*CH; AccCap covers one VC block
+        # past acc_n and the [:FCap] compaction of the accumulator
+        caps["VC"] = min(caps["VC"], self.A * CH)
+        caps["AccCap"] = max(caps["AccCap"], 2 * caps["VC"], caps["FCap"])
+        return caps
+
+    def _run_resident(self) -> CheckResult:
+        """The resident search (bfs.py:2948-3404): one level at a time,
+        each one device program enqueued by the host and read back as
+        one summary vector.  The host holds the rollback: on an ST_OVF_*
+        status it keeps the pre-level seen table and frontier, grows the
+        named capacity x4 (or spills the seen table to the cold tiers)
+        and redoes the level."""
+        from .. import faults
+        t0 = time.time()
+        tel = obs.current()
+        dev = self.device
+        K, PW = self.K, self.PW
+        warnings = ["resident mode: search runs device-side end to end; "
+                    "no counterexample traces (rerun with the level/"
+                    "host_seen device modes or the interp for a trace)",
+                    "resident mode (W={}): dedup on 128-bit fingerprints; "
+                    "collision probability < n^2 * 2^-129".format(self.W)]
+        warnings.extend(self._symmetry_warnings())
+        warnings.extend(self._por_warnings())
+
+        init_rows, explored_init, n_init, err = \
+            self._prepare_init(t0, warnings)
+        if err is not None:
+            return err
+        generated = n_init
+        distinct = len(explored_init)
+
+        CH = _pow2_at_least(self.chunk, lo=64)
+        caps = self._res_start_caps(n_init, CH)
+        init_keys, init_packed, init_povf = self._host_keys(init_rows)
+        if init_povf:
+            return self._mk_result(
+                False, distinct, generated, 0, t0, warnings,
+                Violation("error", "capacity overflow", [],
+                          self._pack_ovf_msg()))
+        frontier_np = np.full((caps["FCap"], PW), SENTINEL, np.int32)
+        frontier_np[:distinct] = init_packed[explored_init]
+        frontier = torch.as_tensor(frontier_np, device=dev)
+        fcount = distinct
+        seen_np = np.full((caps["SC"], K), SENTINEL, np.int32)
+        if n_init:
+            order = np.lexsort(tuple(init_keys[:, i]
+                                     for i in reversed(range(K))))
+            seen_np[:n_init] = init_keys[order]
+        seen = torch.as_tensor(seen_np, device=dev)
+        seen_count = n_init
+        del frontier_np, seen_np
+
+        depth = 0
+        grow_flag = {ST_OVF_SEEN: "SC", ST_OVF_FRONT: "FCap",
+                     ST_OVF_ACC: "AccCap", ST_OVF_VC: "VC"}
+        self.log(f"Progress({depth}): {generated} states generated, "
+                 f"{distinct} distinct states found, "
+                 f"{fcount} states left on queue.")
+        last_progress = time.time()
+        while True:
+            # chaos sites: crash / device failure entering a level
+            faults.kill_self("run_kill", level=depth, engine="resident")
+            faults.inject("device_run_fail", level=depth)
+            obs.note_buffer("resident.seen", caps["SC"] * K * 4)
+            obs.note_buffer("resident.frontier", caps["FCap"] * PW * 4)
+            obs.note_buffer("resident.accumulator",
+                            caps["AccCap"] * (K + PW) * 4)
+            obs.note_buffer("resident.candidates",
+                            caps["VC"] * (K + PW) * 4)
+            t_lvl = time.time()
+            fcount_in, gen_in, dist_in = fcount, generated, distinct
+            summary, seen2, front2 = self._res_level(seen, seen_count,
+                                                     frontier, fcount, caps,
+                                                     CH)
+            vals = self._res_read(summary)
+            (lstat, seen_count2, fcount2, gen_l, ovcode, which, pora, porx,
+             porm) = vals[:9]
+            brow = np.asarray(vals[9:], dtype=np.int64).astype(np.int32)
+            # an overflow rolls the whole level back: growable caps are
+            # redone after growth, a lane overflow aborts with the last
+            # completed level's exact counts
+            ovf = lstat in grow_flag or lstat == ST_OVF_LANES
+            if not ovf:
+                seen, seen_count, frontier, fcount = \
+                    seen2, seen_count2, front2, fcount2
+                distinct += fcount2
+                generated += gen_l
+                self._por_stats["ample"] += pora
+                self._por_stats["expanded"] += porx
+                self._por_stats["masked"] += porm
+            del summary, seen2, front2
+            # deadlock and assert states belong to the CURRENT frontier
+            # (depth d); an invariant violation lives in the new level
+            if not (ovf or lstat in (ST_DEADLOCK, ST_ASSERT)):
+                depth += 1
+            if lstat != ST_CONTINUE:
+                stat = lstat
+            elif fcount == 0:
+                stat = ST_DONE
+            elif self.max_states and distinct >= self.max_states:
+                stat = ST_TRUNC
+            else:
+                stat = ST_CONTINUE
+            # cold-tier filter: after a spill the device table restarted
+            # empty, so a committed level's frontier may hold rows whose
+            # keys live in the host/disk runs — exactly the rows the
+            # uncapped table would have deduped.  Drop them (order-
+            # preserving) before counts, truncation or the next level
+            # see them.  Rolled-back levels keep their frontier.
+            if self._tiers is not None and self._tiers.active and \
+                    fcount > 0 and stat not in grow_flag and \
+                    stat not in (ST_OVF_LANES, ST_DONE):
+                fr_np = frontier[:fcount].cpu().numpy()
+                keep = self._tier_keep_mask(fr_np)
+                n_dup = int((~keep).sum())
+                if n_dup:
+                    kept_rows = np.ascontiguousarray(fr_np[keep])
+                    distinct -= n_dup
+                    fcount = len(kept_rows)
+                    fr_full = np.full((frontier.shape[0], PW), SENTINEL,
+                                      np.int32)
+                    fr_full[:fcount] = kept_rows
+                    frontier = torch.as_tensor(fr_full, device=dev)
+                if stat == ST_TRUNC and self.max_states and \
+                        distinct < self.max_states:
+                    stat = ST_CONTINUE  # phantom limit: dups un-counted
+                if fcount == 0 and stat == ST_CONTINUE:
+                    stat = ST_DONE  # the whole level was cold dups
+                self._tiers.publish_gauges(seen_count)
+            tel.level(depth, frontier=fcount_in,
+                      generated=generated - gen_in,
+                      new=distinct - dist_in, distinct=distinct,
+                      seen=seen_count, status=stat,
+                      wall_s=round(time.time() - t_lvl, 6))
+            self._fp_occupancy = seen_count
+
+            if stat in grow_flag:
+                what = grow_flag[stat]
+                old = caps[what]
+                if what == "SC" and self.seen_cap is not None and \
+                        old >= self.seen_cap and seen_count > 0:
+                    # device tier full: compact the sorted prefix out to
+                    # the cold tiers, restart the device table empty and
+                    # redo the level (the rollback kept the pre-level
+                    # state)
+                    with tel.span("tier.spill", keys=seen_count):
+                        self._tier_spill_prefix(
+                            seen[:seen_count].cpu().numpy(), seen_count)
+                    seen = torch.full((old, K), int(SENTINEL),
+                                      dtype=torch.int32, device=dev)
+                    seen_count = 0
+                    self.log(f"-- tier: device seen cap "
+                             f"{self.seen_cap} reached; spilled the "
+                             f"device tier to "
+                             f"host={self._tiers.host_keys}/"
+                             f"disk={self._tiers.disk_keys} keys "
+                             f"(level {depth} redone)")
+                    continue
+                caps[what] = old * 4
+                if what == "VC":
+                    caps[what] = min(caps[what], self.A * CH)
+                if what == "SC" and self.seen_cap is not None:
+                    if old < self.seen_cap:
+                        # grow the device tier all the way TO the cap
+                        # before spilling
+                        caps[what] = min(caps[what], self.seen_cap)
+                    else:
+                        # at the cap with nothing left to spill: one
+                        # level's new keys alone exceed it
+                        self.log(f"-- tier: device cap "
+                                 f"{self.seen_cap} < one level's new "
+                                 f"keys; growing to {caps[what]} "
+                                 f"anyway (soft cap)")
+                if what == "SC":
+                    seen = torch.cat([seen, torch.full(
+                        (caps[what] - old, K), int(SENTINEL),
+                        dtype=torch.int32, device=dev)])
+                elif what == "FCap":
+                    frontier = torch.cat([frontier, torch.full(
+                        (caps[what] - old, PW), int(SENTINEL),
+                        dtype=torch.int32, device=dev)])
+                caps["AccCap"] = max(caps["AccCap"], 2 * caps["VC"],
+                                     caps["FCap"])
+                self.log(f"-- resident: growing {what} to {caps[what]} "
+                         f"(level {depth} redone)")
+            elif stat == ST_CONTINUE:
+                now = time.time()
+                if now - last_progress >= self.progress_every:
+                    last_progress = now
+                    self.log(f"Progress({depth}): {generated} states "
+                             f"generated, {distinct} distinct states "
+                             f"found, {fcount} states left on queue.")
+            elif stat == ST_DONE:
+                self.log("Model checking completed. No error has been "
+                         "found.")
+                self.log(f"{generated} states generated, {distinct} "
+                         f"distinct states found, 0 states left on queue.")
+                self.log(f"The depth of the complete state graph search "
+                         f"is {depth}.")
+                return self._mk_result(True, distinct, generated,
+                                       depth - 1, t0, warnings)
+            elif stat == ST_TRUNC:
+                self.log("-- state limit reached, search truncated")
+                return self._mk_result(
+                    True, distinct, generated, depth, t0, warnings,
+                    None, truncated=True,
+                    trunc_reason=f"max_states: distinct {distinct} >= "
+                                 f"limit {self.max_states}")
+            elif stat == ST_OVF_LANES:
+                if ovcode == OV_DEMOTED:
+                    msg = ("a demoted compile-recovery fired (the "
+                           "kernel under-approximates here): run the "
+                           "host_seen mode, which demotes the arm to "
+                           "the interpreter and restarts — raising "
+                           "caps cannot help")
+                elif ovcode == OV_PACK:
+                    msg = self._pack_ovf_msg()
+                else:
+                    msg = ("a container exceeded its lane capacity "
+                           f"({self._caps_note()})")
+                return self._mk_result(
+                    False, distinct, generated, depth, t0, warnings,
+                    Violation("error", "capacity overflow", [], msg))
+            else:
+                st = self.layout.decode_packed(brow)
+                note = "state reached by resident-mode search (no trace)"
+                if stat == ST_INV:
+                    nm = self.inv_fns[which][0] if 0 <= which < \
+                        len(self.inv_fns) else "invariant"
+                    v = Violation("invariant", nm, [(st, note)])
+                elif stat == ST_DEADLOCK:
+                    v = Violation("deadlock", "deadlock", [(st, note)])
+                else:
+                    v = Violation("assert", "Assert", [(st, note)],
+                                  "assertion failed in an enabled action")
+                return self._mk_result(False, distinct, generated, depth,
+                                       t0, warnings, v)
+
+    # ---- the out-of-core seen set: spill and cold-tier probes ----
+
+    def _ensure_tiers(self):
+        """The cold-tier store, created at the first spill (runs that
+        never overflow pay nothing)."""
+        if self._tiers is None:
+            from .tiers import TieredSeen
+            self._tiers = TieredSeen(
+                self.K - 1, host_budget_keys=self.host_tier_keys,
+                spill_dir=self.spill_dir, log=self.log)
+        return self._tiers
+
+    def _tier_spill_prefix(self, seen_np: np.ndarray, count: int) -> None:
+        """Compact the device table's sorted valid prefix out as ONE
+        immutable sorted run (the validity lane is stripped — cold runs
+        hold data words only)."""
+        if count <= 0:
+            return
+        t = self._ensure_tiers()
+        t.spill(np.ascontiguousarray(seen_np[:count, 1:]))
+        obs.current().counter("tier.spilled_keys", int(count))
+
+    def _packed_keys(self, packed_np: np.ndarray) -> np.ndarray:
+        """Dedup-key DATA words ([n, K-1], validity lane stripped) of a
+        block of PACKED rows (K1, then K2): the cold-tier probe basis for
+        frontier rows pulled back from the device."""
+        n = len(packed_np)
+        if n == 0:
+            return np.zeros((0, self.K - 1), np.int32)
+        packed = torch.as_tensor(np.ascontiguousarray(packed_np, np.int32),
+                                 device=self.device)
+        valid = torch.ones(n, dtype=torch.bool, device=self.device)
+        keys = self._keys_of(self._unpack(packed), valid)[0]
+        return keys[:, 1:].cpu().numpy()
+
+    def _tier_keep_mask(self, rows_np: np.ndarray) -> np.ndarray:
+        """[n] bool keep-mask over packed rows: False where the row's
+        dedup key already lives in a cold tier (it was admitted before
+        the spill, so the uncapped run would never have re-frontiered
+        it)."""
+        if self._tiers is None or not self._tiers.active \
+                or len(rows_np) == 0:
+            return np.ones(len(rows_np), bool)
+        return ~self._tiers.probe(self._packed_keys(rows_np))
 
     # ---- the chunked host-seen engine ----
 
@@ -1580,13 +2177,20 @@ class TorchExplorer:
         occ = getattr(self, "_fp_occupancy", None)
         if occ is not None:
             tel.gauge("fingerprint.occupancy", occ)
+        # the tier-hierarchy summary when the run spilled
+        tiers_stats = None
+        if self._tiers is not None and self._tiers.active:
+            tiers_stats = self._tiers.stats()
+            self._tiers.publish_gauges(occ or 0)
         self._por_finish(self._por_stats["ample"],
                          self._por_stats["expanded"],
                          self._por_stats["masked"], distinct)
         seen_mode = "fingerprint" if self.fp_mode else "exact"
         collision_p = None
         if self.fp_mode:
-            n = float(occ or 0)
+            # every admitted key: device occupancy and the cold tiers
+            n = float((occ or 0) + (len(self._tiers)
+                                    if self._tiers is not None else 0))
             collision_p = n * n * 2.0 ** -129
             tel.gauge("fingerprint.collision_p", collision_p)
         if truncated and trunc_reason is None:
@@ -1597,7 +2201,8 @@ class TorchExplorer:
                            diameter=max(diameter, 0), violation=violation,
                            wall_s=time.time() - t0, truncated=truncated,
                            warnings=warnings, trunc_reason=trunc_reason,
-                           seen_mode=seen_mode, collision_p=collision_p)
+                           seen_mode=seen_mode, collision_p=collision_p,
+                           tiers=tiers_stats)
 
     def _trace_to(self, trace_levels, frontier_maps, level: int, idx: int,
                   from_new: bool = False) -> List[Tuple[Dict, str]]:

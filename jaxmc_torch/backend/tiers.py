@@ -1,0 +1,463 @@
+r"""Out-of-core hierarchical seen set: the host-RAM and disk cold tiers.
+
+Without it, every engine rolls into truncation (or unbounded device
+growth) when the seen set outgrows device memory.  TLC solved the same
+wall with a disk-backed fingerprint set (Yu, Manolios & Lamport, *Model
+Checking TLA+ Specifications*, 1999); our rank-merge sorted-prefix
+invariant is already a merge of sorted runs, which is
+exactly the primitive an LSM-style tier hierarchy (O'Neil et al., *The
+Log-Structured Merge-Tree*, 1996) wants.  The ladder:
+
+    device   the engine's sorted seen table (hot tier) — rank-merge
+             dedups the <=R incoming keys per level exactly as before
+    host     immutable sorted key runs in RAM (spilled device prefixes)
+    disk     immutable sorted .npy runs under a spill directory,
+             probed through np.memmap (never fully resident)
+
+When the device table would outgrow its cap, the engine spills its
+WHOLE sorted valid prefix here as one immutable run and restarts the
+table empty; per-level survivors of the device rank-merge are then
+membership-probed against the cold runs (vectorized binary search per
+run) before they are counted distinct or explored.  Runs compact
+LSM-style with the SAME rank-merge row discipline as the device kernel
+(`_np_rank_merge` mirrors bfs._rank_merge's lower-bound + histogram
+scatter, host-side via numpy), and the host tier flushes to disk when
+it outgrows its key budget.
+
+Key order: rows of int32 words compared signed-lexicographically — the
+device sort order.  `_keyview` maps that order monotonically onto
+unsigned big-endian bytes so np.searchsorted over a void view probes
+whole rows at once (memmap-friendly: disk runs are never copied in).
+
+Failure containment: a disk write that fails (ENOSPC, a dead mount, or
+the `tier_io_error` fault site) DEGRADES the store to host-tier-only
+with a named `tier.io_degraded` event — the search keeps its exact
+counts and simply stops using the disk rung.
+"""
+
+from __future__ import annotations
+
+import os
+import tempfile
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+
+from .. import faults, obs
+
+
+def _to_keybytes(a: np.ndarray) -> np.ndarray:
+    """[n, kd] int32 rows -> [n, kd] big-endian uint32 whose raw byte
+    order equals the rows' signed-lexicographic order (the device sort
+    order): bias each word by 2^31, store big-endian.  Disk runs are
+    PERSISTED in this form so probes binary-search the memmap directly
+    — the run is never materialized in RAM."""
+    a = np.ascontiguousarray(a, np.int32)
+    b = (a.view(np.uint32) ^ np.uint32(0x80000000)).astype(">u4")
+    return np.ascontiguousarray(b)
+
+
+def _from_keybytes(kb: np.ndarray) -> np.ndarray:
+    """Inverse of _to_keybytes: [n, kd] big-endian uint32 -> int32
+    rows (used when a checkpoint inlines disk runs)."""
+    u = np.ascontiguousarray(np.asarray(kb).astype("=u4"))
+    return (u ^ np.uint32(0x80000000)).view(np.int32)
+
+
+def _rowview(b: np.ndarray) -> np.ndarray:
+    """[n, kd] keybyte array (possibly a memmap) -> [n] void scalars,
+    one opaque 4*kd-byte row each — a VIEW, no copy, so searchsorted
+    over a memmapped disk run touches only O(log n) pages."""
+    return b.view(np.dtype((np.void, b.shape[1] * 4))).reshape(-1)
+
+
+def _keyview(a: np.ndarray) -> np.ndarray:
+    """[n, kd] int32 rows -> [n] void scalars whose unsigned byte order
+    equals the rows' signed-lexicographic order (the device sort
+    order)."""
+    return _rowview(_to_keybytes(a))
+
+
+def _merge_sorted(a: np.ndarray, b: np.ndarray,
+                  va: np.ndarray, vb: np.ndarray) -> np.ndarray:
+    """Merge two SORTED row arrays (given their void row views) into
+    one sorted array, dropping b-rows already present in a — the
+    host-side mirror of bfs._rank_merge's row discipline: one
+    vectorized lower-bound per b-row, then a histogram + cumsum gives
+    every a-row's shift, and two scatters build the merged run (no
+    re-sort of either input).  Works on int32 rows and keybyte runs
+    alike (the void view IS the sort order for both)."""
+    lb = np.searchsorted(va, vb, side="left")
+    found = (lb < len(a)) & (va[np.minimum(lb, len(a) - 1)] == vb)
+    bnew = np.asarray(b)[~found]
+    lbn = lb[~found]
+    out = np.empty((len(a) + len(bnew), a.shape[1]), a.dtype)
+    # pos(b_j) = lb_j + j; pos(a_i) = i + #{new b_j : lb_j <= i}
+    hist = np.bincount(lbn, minlength=len(a) + 1)
+    shift = np.cumsum(hist[: len(a)])
+    out[np.arange(len(a)) + shift] = a
+    if len(bnew):
+        out[lbn + np.arange(len(bnew))] = bnew
+    return out
+
+
+def _np_rank_merge(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """_merge_sorted over int32 key rows."""
+    if len(a) == 0:
+        return b.copy()
+    if len(b) == 0:
+        return a.copy()
+    return _merge_sorted(a, b, _keyview(a), _keyview(b))
+
+
+class TieredSeen:
+    """The cold (host + disk) tiers of the hierarchical seen set.
+
+    `spill` admits one immutable sorted int32 key run ([n, key_words],
+    validity lane already stripped); internally every run — host and
+    disk — is held in KEYBYTE form (_to_keybytes: biased big-endian
+    words whose raw byte order equals the rows' signed-lex order), so
+    `probe` binary-searches each run as a zero-copy void view: no
+    per-probe conversion of the host tier, O(log n) page touches per
+    memmapped disk run.  `dump`/`load` serialize the whole hierarchy
+    for checkpoints (int32 in the payload — portable).  All sizes are
+    in KEYS; bytes = keys * key_words * 4."""
+
+    #: host runs beyond this count compact into one (LSM fan-in)
+    MAX_HOST_RUNS = 4
+    #: disk runs beyond this count compact into one
+    MAX_DISK_RUNS = 6
+
+    def __init__(self, key_words: int,
+                 host_budget_keys: Optional[int] = None,
+                 spill_dir: Optional[str] = None,
+                 log=None):
+        self.key_words = int(key_words)
+        env_b = os.environ.get("JAXMC_TIER_HOST_KEYS")
+        self.host_budget_keys = int(
+            host_budget_keys if host_budget_keys is not None
+            else (env_b if env_b else 1 << 22))
+        self.spill_dir = spill_dir
+        self._own_dir = False
+        self.log = log if log is not None else (lambda s: None)
+        self.host_runs: List[np.ndarray] = []  # keybyte form
+        self.disk_runs: List[str] = []
+        self._disk_keys = 0
+        self._run_seq = 0
+        # run files referenced by the most recent path-mode checkpoint
+        # (dump) or adopted from one (load): compaction must not
+        # unlink a checkpoint's only copy — it retires them instead,
+        # and the next dump() drops the superseded ones
+        self._ckpt_refs: set = set()
+        self._retired: List[str] = []
+        # stats (obs gauges/counters ride these)
+        self.spills = 0
+        self.compactions = 0
+        self.probe_wall_s = 0.0
+        self.io_degraded: Optional[str] = None
+
+    # ---- sizing ------------------------------------------------------
+
+    @property
+    def host_keys(self) -> int:
+        return sum(len(r) for r in self.host_runs)
+
+    @property
+    def disk_keys(self) -> int:
+        return self._disk_keys
+
+    def __len__(self) -> int:
+        return self.host_keys + self._disk_keys
+
+    @property
+    def active(self) -> bool:
+        return bool(self.host_runs or self.disk_runs)
+
+    # ---- spill / compaction ------------------------------------------
+
+    def spill(self, run: np.ndarray) -> None:
+        """Admit one immutable SORTED key run (a spilled device
+        prefix).  Compacts the host tier when its run fan-in exceeds
+        MAX_HOST_RUNS and flushes it to disk when it exceeds the host
+        key budget."""
+        run = np.ascontiguousarray(run, np.int32)
+        if run.ndim != 2 or run.shape[1] != self.key_words:
+            raise ValueError(
+                f"tier spill: run shape {run.shape} does not match "
+                f"key_words={self.key_words}")
+        if len(run) == 0:
+            return
+        self.spills += 1
+        obs.current().counter("tier.spills")
+        # keybyte form once, at admission — probes then view, never
+        # convert (the host tier is probed every level after a spill)
+        self.host_runs.append(_to_keybytes(run))
+        self.log(f"-- tier: spilled {len(run)} keys to host "
+                 f"(host={self.host_keys} disk={self._disk_keys} keys)")
+        if len(self.host_runs) > self.MAX_HOST_RUNS:
+            self._compact_host()
+        if self.host_keys > self.host_budget_keys:
+            self._flush_to_disk()
+
+    def _compact_host(self) -> None:
+        merged = self.host_runs[0]
+        for r in self.host_runs[1:]:
+            merged = _merge_sorted(merged, r, _rowview(merged),
+                                   _rowview(r))
+        self.host_runs = [merged]
+        self.compactions += 1
+        obs.current().counter("tier.compactions")
+
+    def _dir(self) -> str:
+        if self.spill_dir is None:
+            self.spill_dir = tempfile.mkdtemp(prefix="jaxmc-tiers-")
+            self._own_dir = True
+        os.makedirs(self.spill_dir, exist_ok=True)
+        return self.spill_dir
+
+    def _flush_to_disk(self) -> None:
+        """Compact the host tier into one run and move it to disk.  A
+        failed write degrades the store to host-tier-only (named event,
+        exact counts preserved) — never a crash."""
+        if self.io_degraded is not None:
+            return
+        if len(self.host_runs) > 1:
+            self._compact_host()
+        run = self.host_runs[0]
+        self._run_seq += 1
+        try:
+            faults.inject("tier_io_error", op="write")
+            d = self._dir()
+            path = os.path.join(d, f"run{self._run_seq:05d}.npy")
+            tmp = path + ".tmp"
+            with open(tmp, "wb") as fh:
+                # already keybyte: probes memmap the file directly
+                np.save(fh, run)
+                fh.flush()
+                os.fsync(fh.fileno())
+            os.replace(tmp, path)
+        except (OSError, faults.FaultInjected) as ex:
+            self.io_degraded = str(ex)
+            obs.current().event("tier.io_degraded", error=str(ex))
+            obs.current().gauge("tier.io_degraded", str(ex))
+            self.log(f"WARNING: tier disk write failed ({ex}); the "
+                     f"seen-set hierarchy degrades to host-tier-only — "
+                     f"counts stay exact, the host RAM budget is no "
+                     f"longer enforced")
+            return
+        self.disk_runs.append(path)
+        self._disk_keys += len(run)
+        self.host_runs = []
+        self.log(f"-- tier: flushed {len(run)} keys to disk "
+                 f"({os.path.basename(path)})")
+        if len(self.disk_runs) > self.MAX_DISK_RUNS:
+            self._compact_disk()
+
+    def _compact_disk(self) -> None:
+        """LSM compaction of the disk runs into one — merged directly
+        in keybyte space (byte order IS row order, so the same
+        rank-merge discipline applies without decoding).  Inputs are
+        memmapped; the merged output materializes transiently, bounded
+        by the tier size at the MAX_DISK_RUNS trigger."""
+        try:
+            merged = np.load(self.disk_runs[0], mmap_mode="r")
+            for p in self.disk_runs[1:]:
+                nxt = np.load(p, mmap_mode="r")
+                merged = _merge_sorted(merged, nxt, _rowview(merged),
+                                       _rowview(nxt))
+            self._run_seq += 1
+            d = self._dir()
+            path = os.path.join(d, f"run{self._run_seq:05d}.npy")
+            tmp = path + ".tmp"
+            with open(tmp, "wb") as fh:
+                np.save(fh, merged)
+                fh.flush()
+                os.fsync(fh.fileno())
+            os.replace(tmp, path)
+        except OSError as ex:
+            # compaction is an optimization: keep probing the
+            # uncompacted runs rather than degrade anything
+            self.log(f"-- tier: disk compaction skipped ({ex})")
+            return
+        old = self.disk_runs
+        self.disk_runs = [path]
+        self._disk_keys = len(merged)
+        self.compactions += 1
+        obs.current().counter("tier.compactions")
+        for p in old:
+            if p in self._ckpt_refs:
+                # the most recent (path-mode) checkpoint references
+                # this file: unlinking it would make that checkpoint
+                # unresumable — retire it until a newer dump()
+                # supersedes the reference
+                self._retired.append(p)
+                continue
+            try:
+                os.unlink(p)
+            except OSError:
+                pass
+
+    # ---- probes ------------------------------------------------------
+
+    def probe(self, keys: np.ndarray) -> np.ndarray:
+        """[n, key_words] query rows -> [n] bool, True where the key is
+        present in ANY cold run (host or disk).  One vectorized binary
+        search per run; disk runs stream through np.memmap."""
+        keys = np.ascontiguousarray(keys, np.int32)
+        n = len(keys)
+        hit = np.zeros(n, bool)
+        if n == 0 or not self.active:
+            return hit
+        t0 = time.time()
+        vq = _keyview(keys)
+        for run in self.host_runs:
+            self._probe_view(_rowview(run), vq, hit)
+        for path in self.disk_runs:
+            try:
+                run = np.load(path, mmap_mode="r")
+            except OSError as ex:
+                # an unreadable run would silently re-admit its states
+                # as distinct — that is a wrong COUNT, not a degraded
+                # mode, so it must surface
+                raise RuntimeError(
+                    f"tier disk run {path} unreadable mid-search "
+                    f"({ex}); counts would no longer be exact") from ex
+            # keybyte on disk: the void view is a VIEW of the memmap,
+            # so each query's binary search touches O(log n) pages and
+            # the run is never materialized in RAM
+            self._probe_view(_rowview(run), vq, hit)
+        self.probe_wall_s += time.time() - t0
+        return hit
+
+    @staticmethod
+    def _probe_view(vr: np.ndarray, vq: np.ndarray,
+                    hit: np.ndarray) -> None:
+        miss = ~hit
+        if not miss.any():
+            return
+        q = vq[miss]
+        lb = np.searchsorted(vr, q, side="left")
+        found = (lb < len(vr)) & (vr[np.minimum(lb, len(vr) - 1)] == q)
+        hit[miss] = found
+
+    # ---- checkpoint serialization ------------------------------------
+
+    #: disk tiers up to this many keys are INLINED into checkpoints
+    #: (self-contained — a resume on another host rebuilds the disk
+    #: tier from the payload); past it the checkpoint references the
+    #: spill-dir run files instead, so checkpointing a reference-scale
+    #: out-of-core run never materializes the whole cold tier in RAM
+    CKPT_INLINE_KEYS = 1 << 22
+
+    def _ckpt_inline_keys(self) -> int:
+        env = os.environ.get("JAXMC_TIER_CKPT_INLINE_KEYS")
+        return int(env) if env else self.CKPT_INLINE_KEYS
+
+    def dump(self) -> Dict[str, Any]:
+        """The whole hierarchy as a picklable checkpoint payload.
+        Small disk tiers are inlined (decoded back to int32 rows —
+        self-contained, portable across hosts); a disk tier past the
+        inline budget rides as run-file PATHS, so the periodic
+        checkpoint write stays O(host tier) instead of O(disk tier) on
+        exactly the runs this feature exists for (resume then needs
+        the spill dir intact)."""
+        out = {"key_words": self.key_words,
+               "host": [_from_keybytes(r) for r in self.host_runs],
+               "spills": self.spills,
+               "compactions": self.compactions}
+        if self._disk_keys <= self._ckpt_inline_keys():
+            out["disk"] = [_from_keybytes(np.load(p, mmap_mode="r"))
+                           for p in self.disk_runs]
+            self._ckpt_refs = set()
+        else:
+            out["disk_paths"] = [os.path.abspath(p)
+                                 for p in self.disk_runs]
+            out["disk_keys"] = self._disk_keys
+            self._ckpt_refs = set(out["disk_paths"])
+        # runs a compaction retired because the PREVIOUS checkpoint
+        # referenced them are superseded by this dump — drop them
+        keep = []
+        for p in self._retired:
+            if p in self._ckpt_refs:
+                keep.append(p)
+                continue
+            try:
+                os.unlink(p)
+            except OSError:
+                pass
+        self._retired = keep
+        return out
+
+    def load(self, payload: Dict[str, Any]) -> None:
+        """Restore a dumped hierarchy: host runs verbatim; inlined
+        disk runs are re-written under the (new) spill dir —
+        re-materialization failures degrade to host-tier-only exactly
+        like live flushes; path-referenced disk runs (a checkpoint
+        past the inline budget) are re-opened and validated, with a
+        NAMED error when the spill dir did not survive."""
+        if payload.get("key_words") != self.key_words:
+            raise ValueError(
+                f"tier checkpoint has key_words="
+                f"{payload.get('key_words')}, this engine uses "
+                f"{self.key_words} (layout/seen-mode mismatch)")
+        self.host_runs = [_to_keybytes(r)
+                          for r in payload.get("host", [])]
+        self.spills = int(payload.get("spills", 0))
+        self.compactions = int(payload.get("compactions", 0))
+        for p in payload.get("disk_paths", []):
+            try:
+                run = np.load(p, mmap_mode="r")
+            except OSError as ex:
+                raise ValueError(
+                    f"tier checkpoint references disk run {p} which "
+                    f"is missing/unreadable ({ex}); this checkpoint "
+                    f"exceeded the inline budget "
+                    f"(JAXMC_TIER_CKPT_INLINE_KEYS) and needs the "
+                    f"spill directory intact to resume") from ex
+            if run.ndim != 2 or run.shape[1] != self.key_words:
+                raise ValueError(
+                    f"tier disk run {p} has shape {run.shape}, "
+                    f"expected [*, {self.key_words}]")
+            self.disk_runs.append(p)
+            self._disk_keys += len(run)
+            # the adopted files are the source checkpoint's only
+            # copies: protect them from compaction until a newer
+            # dump() supersedes the reference
+            self._ckpt_refs.add(os.path.abspath(p))
+            # future flushes must not collide with adopted run names
+            digits = "".join(ch for ch in os.path.basename(p)
+                             if ch.isdigit())
+            if digits:
+                self._run_seq = max(self._run_seq, int(digits))
+            if self.spill_dir is None:
+                self.spill_dir = os.path.dirname(p)
+        for run in payload.get("disk", []):
+            self.host_runs.append(_to_keybytes(
+                np.ascontiguousarray(run, np.int32)))
+            if self.host_keys > self.host_budget_keys:
+                self._flush_to_disk()
+        if len(self.host_runs) > self.MAX_HOST_RUNS:
+            self._compact_host()
+
+    # ---- stats -------------------------------------------------------
+
+    def stats(self) -> Dict[str, Any]:
+        out = {"host_keys": self.host_keys,
+               "disk_keys": self._disk_keys,
+               "host_runs": len(self.host_runs),
+               "disk_runs": len(self.disk_runs),
+               "spills": self.spills,
+               "compactions": self.compactions,
+               "probe_wall_s": round(self.probe_wall_s, 6)}
+        if self.io_degraded:
+            out["io_degraded"] = self.io_degraded
+        return out
+
+    def publish_gauges(self, device_keys: int = 0) -> None:
+        """Stamp the tier.* observability surface (obs/schema.py)."""
+        tel = obs.current()
+        tel.gauge("tier.occupancy",
+                  {"device": int(device_keys),
+                   "host": self.host_keys, "disk": self._disk_keys})
+        tel.gauge("tier.probe_wall_s", round(self.probe_wall_s, 6))

@@ -2,15 +2,19 @@
 
     python -m jaxmc_torch check SPEC [--cfg F] [--device cuda|cpu]
         [--seen auto|exact|fingerprint] [--max-states N] [--no-trace]
-        [--no-deadlock] [--por] [--host-seen [--chunk N]]
+        [--no-deadlock] [--por] [--host-seen | --resident] [--chunk N]
+        [--seen-cap ROWS [--seen-spill DIR]]
 
 Prints the same TLC-style progress and final lines as `jaxmc check
 --backend jax`.  The search runs on the CUDA card unless --device cpu
 is given.  --host-seen runs the chunked engine whose seen set is the
 native host fingerprint store, the mode that also runs hybrid specs
-(units the compiler rejects demote to the interpreter).  Exit codes:
-0 no error found, 1 a violation, 2 a refused mode or an uncompilable
-spec.
+(units the compiler rejects demote to the interpreter).  --resident
+keeps the whole level loop on the device and reads one summary per
+level (no traces).  --seen-cap caps the device seen table of the level
+and resident engines: past it the table spills to host-RAM and disk
+runs (JAXMC_TIER_HOST_KEYS bounds the host tier).  Exit codes: 0 no
+error found, 1 a violation, 2 a refused mode or an uncompilable spec.
 """
 
 from __future__ import annotations
@@ -23,25 +27,20 @@ from typing import List, Optional
 
 # options of `jaxmc check` whose engines this slice does not port, and
 # the ROADMAP item that ports each
-UNPORTED = (("seen_cap", "--seen-cap (out-of-core tiers)", "A.9"),
-            ("resident", "--resident (resident engine)", "A.10"),
-            ("checkpoint", "--checkpoint (level checkpoints)", "A.15"),
+UNPORTED = (("checkpoint", "--checkpoint (level checkpoints)", "A.15"),
             ("resume", "--resume (level checkpoints)", "A.15"))
 
 
 def refuse_unported(args) -> None:
-    """Refuse the options no ported engine runs.  Under --host-seen,
-    --seen-cap is accepted (the engine logs that it is ignored, as the
-    reference does) and --resident is refused with the reference's
-    text for the pair."""
+    """Refuse the options no ported engine runs, and --resident with
+    --host-seen with the reference's text for the pair, before the
+    model loads."""
     from .compile.vspec import ModeError
     if args.host_seen and args.resident:
         raise ModeError("resident and host_seen are mutually exclusive: "
                         "resident keeps the seen-set on device, host_seen "
                         "keeps it in the native host store")
     for attr, what, item in UNPORTED:
-        if args.host_seen and attr == "seen_cap":
-            continue
         if getattr(args, attr, None):
             raise ModeError(f"{what} is not ported to the torch engine "
                             f"yet (ROADMAP {item})")
@@ -64,9 +63,9 @@ def cmd_check(args) -> int:
                             store_trace=not args.no_trace,
                             seen_mode=args.seen, device=args.device,
                             por=args.por, host_seen=args.host_seen,
-                            chunk=args.chunk,
-                            seen_cap=args.seen_cap if args.host_seen
-                            else None)
+                            resident=args.resident, chunk=args.chunk,
+                            seen_cap=args.seen_cap,
+                            spill_dir=args.seen_spill)
         res = eng.run()
     except ModeError as e:
         print(f"error: {e}", file=sys.stderr)
@@ -113,13 +112,22 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--host-seen", action="store_true",
                    help="chunked engine with the seen set in the native "
                         "host fingerprint store; runs hybrid specs")
-    c.add_argument("--chunk", type=int, default=2048,
-                   help="frontier rows per device step (host-seen mode)")
-    # accepted so that a `jaxmc check` command line is refused by name
     c.add_argument("--resident", action="store_true",
-                   help=argparse.SUPPRESS)
-    c.add_argument("--seen-cap", type=int, default=None,
-                   help=argparse.SUPPRESS)
+                   help="keep the whole search on the device: one summary "
+                        "read per level; no traces, no PROPERTYs")
+    c.add_argument("--chunk", type=int, default=2048,
+                   help="frontier rows per device step (host-seen and "
+                        "resident modes)")
+    c.add_argument("--seen-cap", type=int, default=None, metavar="ROWS",
+                   help="cap the device seen table (level and resident "
+                        "engines); past it the sorted table spills to "
+                        "host-RAM and then disk runs, counts unchanged "
+                        "(env: JAXMC_SEEN_CAP)")
+    c.add_argument("--seen-spill", default=None, metavar="DIR",
+                   help="disk-tier directory for spilled seen-set runs "
+                        "(env: JAXMC_SPILL_DIR; default a temp dir). "
+                        "Host-RAM tier budget: JAXMC_TIER_HOST_KEYS keys")
+    # accepted so that a `jaxmc check` command line is refused by name
     c.add_argument("--checkpoint", default=None, help=argparse.SUPPRESS)
     c.add_argument("--resume", default=None, help=argparse.SUPPRESS)
     c.set_defaults(fn=cmd_check)

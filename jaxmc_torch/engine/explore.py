@@ -42,6 +42,9 @@ class CheckResult:
     # same estimate for its 64-bit fingerprints
     seen_mode: str = "exact"
     collision_p: Optional[float] = None
+    # hierarchical seen-set summary when the run spilled (tiers.py
+    # TieredSeen.stats)
+    tiers: Optional[Dict[str, Any]] = None
 
 
 def format_trace(violation: Violation) -> str:

@@ -1,0 +1,312 @@
+r"""Deterministic fault injection (JAXMC_FAULTS) — the chaos harness.
+
+Long exact-enumeration runs die in a handful of boring ways: an
+OOM-killed pool worker, a transient chunk failure, a clipped checkpoint
+file, a device plugin that refuses to come up.  The fault-tolerance
+layer (engine/parallel.py requeue/respawn, engine/ckpt.py integrity
+checks, cli.py device fallback) exists to survive exactly those — and
+this registry lets tests and `make chaos` trigger each one on demand,
+deterministically, without root or cgroup tricks.
+
+Grammar (comma-separated sites, colon-separated params):
+
+    JAXMC_FAULTS=worker_kill:level=2,chunk_error:level=1:n=3,ckpt_corrupt
+
+Reserved params:
+
+    n=K        fire at most K times TOTAL across every process sharing
+               the run (default 1; the cross-process latch lives in a
+               shared state directory, see below)
+    mode=M     site-specific variant (ckpt_corrupt: truncate | flip)
+
+Any other param is a CONTEXT MATCHER: the site fires only when the
+caller's keyword context carries the same value (string-compared), e.g.
+`worker_kill:level=2` fires only for `kill_self("worker_kill",
+level=2)`.  A param naming a key the call site does not pass never
+matches (so a typo'd matcher disables the fault instead of firing it
+everywhere).
+
+Sites:
+
+    worker_kill       a parallel-engine pool WORKER SIGKILLs itself at
+                      the start of a chunk (simulated OOM kill)
+    chunk_error       a pool worker raises a transient error instead of
+                      expanding its chunk
+    run_kill          the MAIN process SIGKILLs itself entering a BFS
+                      level (serial / parallel / device engines) — the
+                      kill/resume parity harness.  Resident engines
+                      fire it at their DISPATCH boundaries: for the
+                      mesh engine under multi-level supersteps
+                      `level=` therefore matches only
+                      depths that are superstep boundaries — pin
+                      JAXMC_MESH_SUPERSTEP=1 to make every level a
+                      boundary in chaos runs
+    ckpt_corrupt      every checkpoint write leaves a truncated
+                      (mode=truncate, default) or bit-flipped
+                      (mode=flip) file behind
+    device_init_fail  device/plugin init raises (cli.py retries)
+    compile_fail      a per-arm kernel compile raises transiently
+                      (tpu/bfs.py retries)
+    device_run_fail   the device search loop raises entering a level
+                      (cli.py demotes to the parallel CPU engine)
+    tier_io_error     a hierarchical-seen-set disk write fails
+                      (backend/tiers.py): the tier store
+                      must DEGRADE to host-tier-only with a named
+                      `tier.io_degraded` event — counts stay exact,
+                      the run never crashes (ctx: op=write)
+
+Persistent-compile-cache guard sites (compile/cache.py —
+each must degrade to COLD compilation with the run intact, pinned by
+tests/test_cache_guard.py):
+
+    cache_hang        the cache health-probe subprocess wedges (the
+                      known cross-build blob-reload hang): the guard's
+                      timeout fires, the dir is quarantined, the run
+                      compiles cold
+    cache_corrupt     one cache entry is zero-truncated before the
+                      corruption scan: the entry is quarantined into
+                      <dir>/.quarantine and the cache stays enabled
+    cache_lock        the guard's flock acquisition reports contention
+                      (another process mid-quarantine): cold fallback
+                      for this process only
+
+Fleet-serving sites (serve/{queue,daemon}.py — the chaos
+surface for `make fleet-check` and tests/test_chaos.py):
+
+    daemon_kill       the serve daemon SIGKILLs itself mid-run, right
+                      after marking jobs running (ctx: job=<id>,
+                      kind=solo|vbatch, spec=<basename>) — a peer must
+                      detect the expired lease, steal the job, and
+                      finish it bit-identically from its checkpoint;
+                      repeated deaths exhaust the cross-daemon retry
+                      budget and quarantine the job
+    lease_stall       a daemon's fleet loop skips a heartbeat/renewal
+                      tick (ctx: daemon=<id>): its leases age toward
+                      expiry while the job thread keeps running — the
+                      double-claim chaos leg (exactly one winner; the
+                      stalled daemon must drop its now-stolen results)
+    spool_io_error    an atomic spool write (job record / result /
+                      quarantine) raises (ctx: file=<basename>): the
+                      queue retries with backoff, then degrades with a
+                      named `serve.spool_degraded` event (HTTP 503,
+                      never a raw 500)
+
+Mesh sites (tpu/mesh.py — evaluated at ENGINE BUILD time, not
+per dispatch, because the routing is compiled into the jitted step):
+
+    mesh_skew         the owner-routing hash collapses to shard 0 on
+                      BOTH the host init-shard path and the device
+                      all_to_all routing (one formula, so they cannot
+                      disagree): every state lands on one seen shard,
+                      forcing worst-case imbalance, the a2a spill pass
+                      and — once the spill overflows — the
+                      gamma-growth level rerun.  Counts and traces
+                      must stay exact throughout, under BOTH merge
+                      strategies (rank / fullsort) and any
+                      superstep size (tests/test_mesh_resident.py).
+
+Cross-process accounting: the first registry to activate creates a
+state directory and exports it as JAXMC_FAULTS_STATE, so forked pool
+workers AND subprocess children share one `n=` budget (the latch is an
+O_CREAT|O_EXCL file per firing — atomic across processes).  Every
+firing emits a `fault.injected` trace event and bumps the
+`faults.injected` counter on the active telemetry.
+"""
+
+from __future__ import annotations
+
+import errno
+import os
+import signal
+import tempfile
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+_RESERVED = ("n", "mode")
+
+
+class FaultInjected(RuntimeError):
+    """Raised by `inject` sites when the named fault fires."""
+
+    def __init__(self, site: str, ctx: Optional[Dict[str, Any]] = None):
+        self.site = site
+        self.ctx = dict(ctx or {})
+        extra = "".join(f" {k}={v}" for k, v in sorted(self.ctx.items()))
+        super().__init__(f"injected fault: {site}{extra} (JAXMC_FAULTS)")
+
+
+class FaultSpec:
+    __slots__ = ("site", "n", "mode", "match")
+
+    def __init__(self, site: str, params: Dict[str, str]):
+        self.site = site
+        try:
+            self.n = max(0, int(params.get("n", "1")))
+        except ValueError:
+            self.n = 1
+        self.mode = params.get("mode")
+        self.match = {k: v for k, v in params.items()
+                      if k not in _RESERVED}
+
+    def matches(self, ctx: Dict[str, Any]) -> bool:
+        for k, want in self.match.items():
+            if k not in ctx or str(ctx[k]) != want:
+                return False
+        return True
+
+
+def parse_faults(s: str) -> List[FaultSpec]:
+    """Parse a JAXMC_FAULTS value; malformed entries are skipped (the
+    harness must never take a run down by itself)."""
+    out: List[FaultSpec] = []
+    for entry in (s or "").split(","):
+        entry = entry.strip()
+        if not entry:
+            continue
+        parts = entry.split(":")
+        site = parts[0].strip()
+        if not site:
+            continue
+        params: Dict[str, str] = {}
+        for p in parts[1:]:
+            if "=" in p:
+                k, _, v = p.partition("=")
+                params[k.strip()] = v.strip()
+        out.append(FaultSpec(site, params))
+    return out
+
+
+# ---------------------------------------------------------------- registry
+
+_CACHE: Optional[Tuple[str, List[FaultSpec]]] = None
+
+
+def _specs() -> List[FaultSpec]:
+    """The active fault list, re-parsed when JAXMC_FAULTS changes (tests
+    flip it mid-process via monkeypatch)."""
+    global _CACHE
+    env = os.environ.get("JAXMC_FAULTS", "")
+    if _CACHE is not None and _CACHE[0] == env:
+        return _CACHE[1]
+    specs = parse_faults(env) if env else []
+    _CACHE = (env, specs)
+    return specs
+
+
+def _state_dir() -> str:
+    """The shared cross-process latch directory (created lazily, exported
+    so fork/subprocess children inherit the same budget)."""
+    d = os.environ.get("JAXMC_FAULTS_STATE")
+    if d:
+        return d
+    d = tempfile.mkdtemp(prefix="jaxmc-faults-")
+    os.environ["JAXMC_FAULTS_STATE"] = d
+    return d
+
+
+def _claim(site: str, budget: int) -> bool:
+    """Atomically claim one of the site's `budget` firings across every
+    process sharing the state dir."""
+    if budget <= 0:
+        return False
+    d = _state_dir()
+    for i in range(budget):
+        path = os.path.join(d, f"{site}.{i}")
+        try:
+            fd = os.open(path, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+        except OSError as ex:
+            if ex.errno == errno.EEXIST:
+                continue
+            return False  # state dir gone: fail closed, never crash
+        os.write(fd, str(os.getpid()).encode())
+        os.close(fd)
+        return True
+    return False
+
+
+def active() -> bool:
+    return bool(_specs())
+
+
+def ensure_shared_state() -> None:
+    """Pin the cross-process state dir BEFORE forking children, so the
+    whole process tree spends ONE `n=` budget.  A worker forked before
+    this ran would lazily create its own dir and re-fire every respawn."""
+    if active():
+        _state_dir()
+
+
+def targets(*sites: str) -> bool:
+    """True when any configured fault names one of `sites` — engines use
+    this to pick the code path the fault can actually reach (e.g. the
+    parallel engine forces the worker pool on when worker faults are
+    configured, so a tiny model still exercises them)."""
+    want = set(sites)
+    return any(sp.site in want for sp in _specs())
+
+
+def fire(site: str, **ctx: Any) -> Optional[FaultSpec]:
+    """The matched spec when `site` should fail HERE, else None.  Spends
+    one unit of the spec's cross-process `n=` budget and records the
+    firing on the active telemetry."""
+    for sp in _specs():
+        if sp.site != site or not sp.matches(ctx):
+            continue
+        if not _claim(site, sp.n):
+            continue
+        try:  # telemetry must never break the harness (or vice versa)
+            from . import obs
+            tel = obs.current()
+            tel.event("fault.injected", site=site,
+                      **{k: str(v) for k, v in ctx.items()})
+            tel.counter("faults.injected")
+        except Exception:  # noqa: BLE001
+            pass
+        return sp
+    return None
+
+
+def inject(site: str, **ctx: Any) -> None:
+    """Raise FaultInjected when the site fires (transient-error sites)."""
+    if fire(site, **ctx) is not None:
+        raise FaultInjected(site, ctx)
+
+
+def kill_self(site: str, **ctx: Any) -> None:
+    """SIGKILL the CURRENT process when the site fires — the simulated
+    OOM kill.  No cleanup handlers run, exactly like the real thing."""
+    if fire(site, **ctx) is not None:
+        os.kill(os.getpid(), signal.SIGKILL)
+        time.sleep(5)  # never proceed past a pending SIGKILL
+
+
+def corrupt_file(site: str, path: str, **ctx: Any) -> bool:
+    """Damage `path` in place when the site fires: mode=truncate (default)
+    clips the tail, mode=flip flips one payload byte.  Returns True when
+    the file was damaged (checkpoint writers call this AFTER the atomic
+    rename, so the damage models post-write disk corruption)."""
+    sp = fire(site, path=os.path.basename(path), **ctx)
+    if sp is None:
+        return False
+    try:
+        size = os.path.getsize(path)
+        if sp.mode == "flip" and size > 0:
+            with open(path, "r+b") as fh:
+                fh.seek(max(0, size - max(1, size // 4)))
+                b = fh.read(1)
+                fh.seek(-1, os.SEEK_CUR)
+                fh.write(bytes([b[0] ^ 0xFF]) if b else b"\xff")
+        else:
+            with open(path, "r+b") as fh:
+                fh.truncate(max(1, size // 2))
+        return True
+    except OSError:
+        return False
+
+
+def reset_for_tests() -> None:
+    """Drop the parse cache and detach from the shared state dir so each
+    test gets a fresh `n=` budget."""
+    global _CACHE
+    _CACHE = None
+    os.environ.pop("JAXMC_FAULTS_STATE", None)

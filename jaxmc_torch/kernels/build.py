@@ -23,7 +23,8 @@ from typing import Dict, List
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
 BUILD_ROOT = os.path.join(HERE, "_build")
-SOURCES = ("unpack", "keys", "probe", "merge", "canon", "por", "hstep")
+SOURCES = ("unpack", "keys", "probe", "merge", "canon", "por", "hstep",
+           "resident")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -46,6 +47,12 @@ ARGTYPES = {
     "jmc_hstep_count": [_P] * 8 + [_I, _I, _I, _P],
     "jmc_hstep_scan": [_P] * 7 + [_I, _I, _P],
     "jmc_hstep_scatter": [_P] * 11 + [_I, _I, _I, _I, _P],
+    "jmc_res_threads": [],
+    "jmc_res_compact_count": [_P] * 7 + [_I, _I, _I, _P],
+    "jmc_res_compact_scan": [_P] * 6 + [_I, _P],
+    "jmc_res_compact_scatter": [_P] * 4 + [_I, _I, _I, _I, _P],
+    "jmc_res_fold_copy": [_P] * 5 + [_I, _I64, _I, _I, _P],
+    "jmc_res_fold_scalar": [_P] * 6 + [_I64, _I, _I, _I64, _I, _I, _I, _P],
 }
 # return types other than the cudaError_t (an int) of a launch
 RESTYPE = {"jmc_canon_threads": _I64}
@@ -56,7 +63,10 @@ ENTRY = {"unpack": ["jmc_unpack_rows"], "keys": ["jmc_keys_of"],
          "canon": ["jmc_canon_threads", "jmc_canon_rows"],
          "por": ["jmc_por_max_arms", "jmc_por_mask"],
          "hstep": ["jmc_hstep_threads", "jmc_hstep_count", "jmc_hstep_scan",
-                   "jmc_hstep_scatter"]}
+                   "jmc_hstep_scatter"],
+         "resident": ["jmc_res_threads", "jmc_res_compact_count",
+                      "jmc_res_compact_scan", "jmc_res_compact_scatter",
+                      "jmc_res_fold_copy", "jmc_res_fold_scalar"]}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -30,6 +30,12 @@ too, which is how the kernels are compared with them on the card.
   hstep_epilogue K7 backend/bfs.py _hstep_core's masks and reductions
                     and the host's compaction of the valid candidates
                     in _run_host_seen
+  resident_compact K8 backend/bfs.py _get_resident_run: a chunk's
+                    verdict partials and the stable-sort compaction of
+                    its valid grid (capped at VC), and the compaction of
+                    the level's explore mask (capped at FCap)
+  resident_fold  K9 backend/bfs.py _get_resident_run: one chunk folded
+                    into the level's device carry, guarded by its status
 """
 
 from __future__ import annotations
@@ -51,7 +57,10 @@ LAUNCHES: Dict[str, int] = {"unpack_rows": 0, "keys_of": 0,
                             "keys_of_canon": 0, "keys_of_view": 0,
                             "seen_probe": 0, "seen_probe_por": 0,
                             "rank_merge": 0, "canon_rows": 0,
-                            "por_mask": 0, "hstep_epilogue": 0}
+                            "por_mask": 0, "hstep_epilogue": 0,
+                            "resident_compact": 0,
+                            "resident_compact_explore": 0,
+                            "resident_fold": 0}
 # arms the device POR filter takes (por.cu kMaxWords * 64)
 POR_MAX_ARMS = 1024
 
@@ -743,3 +752,224 @@ def hstep_epilogue(en: torch.Tensor, aok: torch.Tensor, ov: torch.Tensor,
         _launch("hstep_epilogue", rc)
     return dict(scalars=scalars, dead=dead, idx=idx, fps=fps, rows=rows,
                 inv_ok=inv_out, explore=exp_out)
+
+
+# ---------------------------------------------------------------------------
+# K8 resident_compact, K9 resident_fold
+# ---------------------------------------------------------------------------
+
+# the reference's ST_* status codes (jaxmc/backend/bfs.py:58-68)
+ST_CONTINUE, ST_DONE, ST_INV, ST_DEADLOCK, ST_ASSERT, ST_TRUNC = range(6)
+ST_OVF_SEEN, ST_OVF_FRONT, ST_OVF_ACC, ST_OVF_VC, ST_OVF_LANES = \
+    range(6, 11)
+# the resident level carry, int64: these names at these positions
+CARRY = ("stat", "acc_n", "gen", "ovcode", "por_ample", "por_expanded",
+         "por_masked")
+# scalars of resident_compact, in order
+COMPACT_SCALARS = ("count", "ovmax", "assert_any", "assert_flat",
+                   "dead_any", "dead_f")
+
+
+def _grid(mask: torch.Tensor) -> torch.Tensor:
+    return mask if mask.dim() == 2 else mask.reshape(1, -1)
+
+
+def resident_compact_twin(mask: torch.Tensor, cap: int, flim=None,
+                          aok=None, ov=None, site: str = ""):
+    """(idx [cap] int32, scalars int64 [6]) over the grid mask [A, CH]
+    (the chunk site: en, with the first `flim` slots of each row valid)
+    or the mask [C] (the explore site).  idx is the first `cap` entries
+    of the stable partition of the valid entries (valid first, each
+    part in index order): bfs's lax.sort((1 - valid, arange))[:cap].
+    scalars: the valid count (uncapped), and with aok and ov [A, CH]
+    the largest ov over the valid slots, assert_any, the first
+    assert-bad flat index (np.argmax order), dead_any and the first
+    dead slot; zeros without them.  `site` only names the kernel's
+    launch counter."""
+    m = _grid(mask)
+    A, CH = m.shape
+    dev = m.device
+    flim = CH if flim is None else int(flim)
+    fv = torch.arange(CH, device=dev) < flim
+    valid = (m & fv[None, :]).reshape(-1)
+    idx = torch.argsort((~valid).to(torch.int32), stable=True)[:cap]
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    ovmax = ab_any = ab_flat = dead_any = dead_f = zero
+    if aok is not None:
+        if A * CH:
+            ovmax = torch.where(fv[None, :], ov, 0).max().to(torch.int64)
+            ab = ((~aok) & fv[None, :]).reshape(-1)
+            ab_any = ab.any().to(torch.int64)
+            ab_flat = torch.where(ab.any(), torch.argmax(ab.to(torch.int32)),
+                                  0).to(torch.int64)
+        dead = fv & ~m.any(dim=0) if A else fv
+        if CH:
+            dead_any = dead.any().to(torch.int64)
+            dead_f = torch.where(dead.any(),
+                                 torch.argmax(dead.to(torch.int32)),
+                                 0).to(torch.int64)
+    scalars = torch.stack([valid.sum().to(torch.int64), ovmax, ab_any,
+                           ab_flat, dead_any, dead_f])
+    return idx.to(torch.int32), scalars
+
+
+def resident_compact(mask: torch.Tensor, cap: int, flim=None, aok=None,
+                     ov=None, site: str = ""):
+    """K8: resident_compact_twin's function in three launches (block
+    counts and reductions, one-block scan, scatter).  Nothing is read
+    back to the host.  A launch counts under resident_compact, or
+    resident_compact_<site>."""
+    _check(mask, "resident_compact.mask", mask.dim(), torch.bool)
+    if mask.dim() not in (1, 2):
+        raise ValueError("resident_compact: mask is [A, CH] or [C]")
+    m = _grid(mask)
+    A, CH = m.shape
+    C = A * CH
+    flim = CH if flim is None else int(flim)
+    if not 0 <= flim <= CH:
+        raise ValueError(f"resident_compact: flim {flim} outside [0, {CH}]")
+    if not 0 <= cap <= C:
+        raise ValueError(f"resident_compact: cap {cap} outside [0, {C}]")
+    if (aok is None) != (ov is None):
+        raise ValueError("resident_compact: aok and ov come together")
+    if aok is not None:
+        _check(aok, "resident_compact.aok", 2, torch.bool)
+        _check(ov, "resident_compact.ov", 2)
+        if aok.shape != m.shape or ov.shape != m.shape:
+            raise ValueError(f"resident_compact: aok {tuple(aok.shape)}, "
+                             f"ov {tuple(ov.shape)} for {tuple(m.shape)}")
+    if max(C, CH) >= 2**31 - 256:
+        raise ValueError(f"resident_compact: {C} entries, the kernel's "
+                         f"indices are int32")
+    if m.device.type == "cpu":
+        return resident_compact_twin(mask, cap, flim, aok, ov)
+    name = "resident_compact_" + site if site else "resident_compact"
+    if aok is not None:
+        _same_device("resident_compact", m, aok, ov)
+    from . import build
+    lib = build.library("resident")
+    dev = m.device
+    threads = int(lib.jmc_res_threads())
+    nb = max(1, -(-max(C, CH) // threads))
+    part = torch.empty((5, nb), dtype=torch.int32, device=dev)
+    scalars = torch.empty((6,), dtype=torch.int64, device=dev)
+    idx = torch.empty((cap,), dtype=torch.int32, device=dev)
+    null = ctypes.c_void_p(0)
+    rc = lib.jmc_res_compact_count(
+        _ptr(m), _ptr(aok) if aok is not None else null,
+        _ptr(ov) if ov is not None else null, _ptr(part[0]), _ptr(part[1]),
+        _ptr(part[2]), _ptr(part[3]), ctypes.c_int(A), ctypes.c_int(CH),
+        ctypes.c_int(flim), _stream())
+    _launch(name, rc)
+    rc = lib.jmc_res_compact_scan(
+        _ptr(part[0]), _ptr(part[1]), _ptr(part[2]), _ptr(part[3]),
+        _ptr(part[4]), _ptr(scalars), ctypes.c_int(nb), _stream())
+    _launch(name, rc)
+    if C and cap:
+        rc = lib.jmc_res_compact_scatter(
+            _ptr(m), _ptr(part[4]), _ptr(scalars), _ptr(idx),
+            ctypes.c_int(A), ctypes.c_int(CH), ctypes.c_int(flim),
+            ctypes.c_int(cap), _stream())
+        _launch(name, rc)
+    return idx, scalars
+
+
+def resident_fold_twin(carry: torch.Tensor, bad_row: torch.Tensor,
+                       part: torch.Tensor, pack_ovf, por, keys_c, rows_c,
+                       acc_keys, acc_rows, frontier, base: int, CH: int,
+                       check_deadlock: bool, ov_pack: int) -> None:
+    """bfs._get_resident_run's chunk fold (:2396-2427), in place: when
+    the carry's status is ST_CONTINUE, append the VC block (keys_c
+    [VC, K], rows_c [VC, PW]) to the accumulators at clamp(acc_n, 0,
+    AccCap - VC), add vcnt (resident_compact's count) to acc_n, set the
+    status — ST_OVF_LANES (a kernel overflow code or K2's pack flag),
+    ST_OVF_VC, ST_OVF_ACC, then ASSERT or DEADLOCK with bad_row =
+    frontier[base + f] — and add gen (vcnt less the POR-masked
+    candidates), the overflow code and the POR deltas int64 [3] (por,
+    or None).  Otherwise change nothing."""
+    c = [int(x) for x in carry.tolist()]
+    if c[0] != ST_CONTINUE:
+        return
+    p = [int(x) for x in part.tolist()]
+    VC, AccCap = keys_c.shape[0], acc_keys.shape[0]
+    off = min(max(c[1], 0), AccCap - VC)
+    acc_keys[off:off + VC] = keys_c
+    acc_rows[off:off + VC] = rows_c
+    vcnt = p[0]
+    acc_n = c[1] + vcnt
+    d = [int(x) for x in por.tolist()] if por is not None else [0, 0, 0]
+    ovcode = max(c[3], p[1])
+    povf = bool(pack_ovf)
+    if ovcode == 0 and povf:
+        ovcode = int(ov_pack)
+    if p[1] != 0 or povf:
+        stat = ST_OVF_LANES
+    elif vcnt > VC:
+        stat = ST_OVF_VC
+    elif acc_n + VC > AccCap:
+        stat = ST_OVF_ACC
+    else:
+        stat = ST_CONTINUE
+    dead_any = bool(check_deadlock) and p[4] != 0
+    if stat == ST_CONTINUE and (p[2] or dead_any):
+        f = p[3] % CH if p[2] else p[5]
+        bad_row.copy_(frontier[base + f])
+        stat = ST_ASSERT if p[2] else ST_DEADLOCK
+    carry.copy_(torch.tensor([stat, acc_n, c[2] + vcnt - d[2], ovcode,
+                              c[4] + d[0], c[5] + d[1], c[6] + d[2]],
+                             dtype=torch.int64))
+
+
+def resident_fold(carry: torch.Tensor, bad_row: torch.Tensor,
+                  part: torch.Tensor, pack_ovf, por, keys_c, rows_c,
+                  acc_keys, acc_rows, frontier, base: int, CH: int,
+                  check_deadlock: bool, ov_pack: int) -> None:
+    """K9: resident_fold_twin's function in two launches (the block
+    copy, one thread per word; the scalar fold, one thread), reading
+    the status from device memory: nothing is read back to the host."""
+    _check(carry, "resident_fold.carry", 1, torch.int64)
+    _check(bad_row, "resident_fold.bad_row", 1)
+    _check(part, "resident_fold.part", 1, torch.int64)
+    for nm, x in (("keys_c", keys_c), ("rows_c", rows_c),
+                  ("acc_keys", acc_keys), ("acc_rows", acc_rows),
+                  ("frontier", frontier)):
+        _check(x, "resident_fold." + nm, 2)
+    VC, K = keys_c.shape
+    AccCap, PW = acc_rows.shape
+    if carry.shape[0] != len(CARRY) or part.shape[0] != 6 or \
+            rows_c.shape != (VC, PW) or acc_keys.shape != (AccCap, K) or \
+            frontier.shape[1] != PW or bad_row.shape[0] != PW:
+        raise ValueError("resident_fold: shapes disagree")
+    if VC > AccCap or not 0 <= base < max(frontier.shape[0], 1) or CH <= 0:
+        raise ValueError(f"resident_fold: VC {VC}, AccCap {AccCap}, base "
+                         f"{base}, CH {CH}")
+    if por is not None:
+        _check(por, "resident_fold.por", 1, torch.int64)
+        if por.shape[0] != 3:
+            raise ValueError("resident_fold: por holds three counts")
+    if carry.device.type == "cpu":
+        return resident_fold_twin(carry, bad_row, part, pack_ovf, por,
+                                  keys_c, rows_c, acc_keys, acc_rows,
+                                  frontier, base, CH, check_deadlock,
+                                  ov_pack)
+    if not isinstance(pack_ovf, torch.Tensor):
+        pack_ovf = torch.tensor(bool(pack_ovf), device=carry.device)
+    pack_ovf = pack_ovf.reshape(()).to(torch.bool).contiguous()
+    _same_device("resident_fold", carry, bad_row, part, pack_ovf, keys_c,
+                 rows_c, acc_keys, acc_rows, frontier,
+                 *([por] if por is not None else []))
+    from . import build
+    lib = build.library("resident")
+    rc = lib.jmc_res_fold_copy(
+        _ptr(carry), _ptr(keys_c), _ptr(rows_c), _ptr(acc_keys),
+        _ptr(acc_rows), ctypes.c_int(VC), ctypes.c_int64(AccCap),
+        ctypes.c_int(K), ctypes.c_int(PW), _stream())
+    _launch("resident_fold", rc)
+    rc = lib.jmc_res_fold_scalar(
+        _ptr(carry), _ptr(bad_row), _ptr(part), _ptr(pack_ovf),
+        _ptr(por) if por is not None else ctypes.c_void_p(0),
+        _ptr(frontier), ctypes.c_int64(int(base)), ctypes.c_int(int(CH)),
+        ctypes.c_int(VC), ctypes.c_int64(AccCap), ctypes.c_int(PW),
+        ctypes.c_int(int(bool(check_deadlock))), ctypes.c_int(int(ov_pack)),
+        _stream())
+    _launch("resident_fold", rc)

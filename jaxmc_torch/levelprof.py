@@ -1,7 +1,7 @@
 """Where a level-engine or host-seen run spends its time on the card.
 
     python -m jaxmc_torch.levelprof SPEC [--cfg F] [--seen MODE] [--por]
-        [--host-seen [--chunk N]] [--top N]
+        [--host-seen | --resident] [--chunk N] [--top N]
 
 Builds TorchExplorer on the CUDA card and runs the search three times:
   1. to warm the kernel build and the allocator;
@@ -19,7 +19,12 @@ Builds TorchExplorer on the CUDA card and runs the search three times:
      expand, keys (K2), predicates (over every candidate), k7 (the
      epilogue), d2h (the scalar and compacted-row reads), store
      (native store insert and contains), fallback (the interpreter's
-     arms) — and the step is one chunk (unpack to k7).
+     arms) — and the step is one chunk (unpack to k7).  With
+     --resident the stages are those of a level — unpack (K1), expand,
+     k8 (the chunk and explore compactions), keys (K2), canon (K5),
+     por (K3 + K6), k9 (the chunk fold), merge (sort + K3 + K4),
+     predicates, read (the one summary read) — and the step is one
+     level (its chunks and its end, without the read).
 Each measured run starts from a cleared initial-state memo, so it
 encodes, dedups and checks the initial states as a first run does.
 Prints one JSON line with all of it and the card's name and power
@@ -43,7 +48,11 @@ STEP = "level.step"
 HS_STAGES = ("hs.unpack", "hs.expand", "hs.keys", "hs.canon",
              "hs.predicates", "hs.k7", "hs.d2h", "hs.store", "hs.fallback")
 HS_STEP = "hs.step"
-RANGES = STAGES + (STEP,) + HS_STAGES + (HS_STEP,)
+RES_STAGES = ("res.unpack", "res.expand", "res.k8", "res.keys", "res.canon",
+              "res.por", "res.k9", "res.merge", "res.predicates", "res.read")
+RES_STEP = "res.level"
+RANGES = STAGES + (STEP,) + HS_STAGES + (HS_STEP,) + RES_STAGES + \
+    (RES_STEP,)
 
 
 def _device_events(prof):
@@ -79,7 +88,7 @@ def staged_engine(model, timed: bool, **kw):
     from . import native_store
     from .backend.bfs import TorchExplorer
     hs = bool(kw.get("host_seen"))
-    P = "hs." if hs else "level."
+    P = "hs." if hs else ("res." if kw.get("resident") else "level.")
     acc = {k: 0.0 for k in RANGES}
     # the fallback arms unpack, evaluate and key rows themselves: that
     # time stays theirs, not the step stages'
@@ -109,6 +118,22 @@ def staged_engine(model, timed: bool, **kw):
 
         def _hstep(self, frontier_p, fcount):
             return stage(HS_STEP, super()._hstep, frontier_p, fcount)
+
+        def _res_level(self, *a):
+            return stage(RES_STEP, super()._res_level, *a)
+
+        def _compact(self, *a, **kw):
+            return stage("res.k8", lambda: super(Staged, self)._compact(
+                *a, **kw))
+
+        def _fold(self, *a):
+            return stage("res.k9", super()._fold, *a)
+
+        def _res_por(self, *a):
+            return stage("res.por", super()._res_por, *a)
+
+        def _res_read(self, summary):
+            return stage("res.read", super()._res_read, summary)
 
         def _unpack(self, packed):
             return stage(P + "unpack", super()._unpack, packed)
@@ -153,7 +178,7 @@ def staged_engine(model, timed: bool, **kw):
                          seen_count, ckeys, cvalid, FC)
 
         def _rank_merge(self, seen, seen_count, keys):
-            return stage("level.merge", super()._rank_merge, seen,
+            return stage(P + "merge", super()._rank_merge, seen,
                          seen_count, keys)
 
     eng = Staged(model, **kw)
@@ -167,7 +192,7 @@ def staged_engine(model, timed: bool, **kw):
 
 
 def profile_run(spec, cfg=None, seen_mode="auto", top=12, por=False,
-                host_seen=False, chunk=2048):
+                host_seen=False, chunk=2048, resident=False):
     from torch.profiler import ProfilerActivity, profile
     from .session import load_model
     if not torch.cuda.is_available():
@@ -177,7 +202,10 @@ def profile_run(spec, cfg=None, seen_mode="auto", top=12, por=False,
               por=por)
     if host_seen:
         kw.update(host_seen=True, chunk=chunk)
-    stages, step = (HS_STAGES, HS_STEP) if host_seen else (STAGES, STEP)
+    if resident:
+        kw.update(resident=True, chunk=chunk)
+    stages, step = ((HS_STAGES, HS_STEP) if host_seen else
+                    (RES_STAGES, RES_STEP) if resident else (STAGES, STEP))
     eng, _ = staged_engine(load_model(spec, cfg), False, **kw)
     eng.run()                                   # warm: build, allocator
     torch.cuda.synchronize()
@@ -209,7 +237,7 @@ def profile_run(spec, cfg=None, seen_mode="auto", top=12, por=False,
     if (r3.distinct, r3.generated) != (r.distinct, r.generated):
         raise AssertionError("staged run's counts differ")
     # the keys stage calls the canon stage inside it: keep them apart
-    p = "hs." if host_seen else "level."
+    p = "hs." if host_seen else ("res." if resident else "level.")
     acc[p + "keys"] -= acc[p + "canon"]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -229,13 +257,11 @@ def profile_run(spec, cfg=None, seen_mode="auto", top=12, por=False,
         # sort, the verdict scalars; host-seen: the masks, the SENTINEL
         # fill) and the host loop around the steps
         "step_rest_s": acc[step] - sum(
-            acc[k] for k in stages
-            if k in (STAGES if not host_seen else
-                     ("hs.unpack", "hs.expand", "hs.keys", "hs.canon",
-                      "hs.predicates", "hs.k7"))),
+            acc[k] for k in stages if k not in (
+                "hs.d2h", "hs.store", "hs.fallback", "res.read")),
         "loop_rest_s": wall3 - acc[step] - (sum(
             acc[k] for k in ("hs.d2h", "hs.store", "hs.fallback"))
-            if host_seen else 0.0),
+            if host_seen else acc["res.read"]),
         "card": smi,
     }
 
@@ -249,10 +275,11 @@ def main(argv=None) -> int:
     p.add_argument("--top", type=int, default=12)
     p.add_argument("--por", action="store_true")
     p.add_argument("--host-seen", action="store_true")
+    p.add_argument("--resident", action="store_true")
     p.add_argument("--chunk", type=int, default=2048)
     a = p.parse_args(argv)
     out = profile_run(a.spec, a.cfg, a.seen, a.top, a.por, a.host_seen,
-                      a.chunk)
+                      a.chunk, a.resident)
     print(json.dumps(out))
     return 0
 

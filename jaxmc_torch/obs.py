@@ -1,9 +1,9 @@
 """Run telemetry for the port: counters, gauges, spans, a level log and a
 logger.
 
-A small module of the port's own.  It holds the calls the level engine
-and the copied front end and evaluator make (`current().counter/
-gauge/span/level`, `Logger`, `note_buffer`) and
+A small module of the port's own.  It holds the calls the engines and
+the copied front end, evaluator, tiers and faults make (`current().
+counter/gauge/span/level/event`, `Logger`, `note_buffer`) and
 keeps their values in memory, where a caller reads them after a run
 (`current().levels`, `.gauges`, ...).  Nothing is written to disk.
 """
@@ -35,9 +35,13 @@ class Telemetry:
         self.spans: List[Span] = []
         self.levels: List[Dict[str, Any]] = []
         self.buffers: Dict[str, int] = {}
+        self.events: List[Dict[str, Any]] = []
 
     def counter(self, name: str, n: float = 1) -> None:
         self.counters[name] = self.counters.get(name, 0) + n
+
+    def event(self, name: str, **attrs) -> None:
+        self.events.append(dict(name=name, **attrs))
 
     def gauge(self, name: str, value: Any) -> None:
         self.gauges[name] = value

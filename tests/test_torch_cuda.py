@@ -362,3 +362,193 @@ def test_host_seen_on_the_card_equals_the_cpu(card, spec, cfg, kw):
         res[dev] = (r.ok, r.generated, r.distinct, r.diameter, r.warnings,
                     r.violation and format_trace(r.violation), lines)
     assert res["cuda"] == res["cpu"]
+
+
+@pytest.mark.parametrize("A,CH,cap", [(1, 64, 64), (13, 4096, 1 << 14),
+                                      (33, 65536, 1 << 18),
+                                      (7, 1 << 18, 1 << 14)])
+@pytest.mark.parametrize("p", [0.0, 0.3, 1.0])
+def test_resident_compact_matches_twin(card, A, CH, cap, p):
+    """K8 at the chunk site (a partial last chunk, assert and overflow
+    codes, dead slots) and at the explore site ([C] mask capped at
+    FCap): every index of the stable partition and every scalar."""
+    from jaxmc_torch.kernels import ops
+    rng = np.random.default_rng(A * 11 + CH)
+    cap = min(cap, A * CH)
+    for flim in (CH, CH - CH // 3, 0):
+        en = torch.as_tensor(rng.random((A, CH)) < p, device=card)
+        aok = torch.as_tensor(rng.random((A, CH)) > 1e-4, device=card)
+        ov = torch.as_tensor(np.where(rng.random((A, CH)) < 1e-5,
+                                      rng.integers(1, 3, (A, CH)), 0)
+                             .astype(np.int32), device=card)
+        k = ops.resident_compact(en, cap, flim, aok, ov)
+        t = ops.resident_compact_twin(en, cap, flim, aok, ov)
+        torch.cuda.synchronize()
+        _eq(k[0], t[0])
+        _eq(k[1], t[1])
+    m = en.reshape(-1).contiguous()
+    k = ops.resident_compact(m, cap, site="explore")
+    t = ops.resident_compact_twin(m, cap)
+    torch.cuda.synchronize()
+    _eq(k[0], t[0])
+    _eq(k[1], t[1])
+
+
+@pytest.mark.parametrize("case", range(8))
+def test_resident_fold_matches_twin(card, case):
+    """K9: every status (continue, the three overflows, assert,
+    deadlock, a carry that is not ST_CONTINUE and must stay as it is),
+    with and without POR deltas: carry, bad row and accumulators."""
+    from jaxmc_torch.compile.kernel2 import OV_PACK
+    from jaxmc_torch.kernels import ops
+    rng = np.random.default_rng(case)
+    VC, AccCap, PW, FC, CH = 4096, 1 << 15, 3, 1 << 14, 1 << 12
+    stat0 = ops.ST_DEADLOCK if case == 7 else ops.ST_CONTINUE
+    acc_n0 = [0, 9000, 27000, 0, 100, 0, 0, 7][case]
+    vcnt = [4000, 4096, 1000, 5000, 10, 10, 10, 9][case]
+    part = torch.tensor([vcnt, 2 if case == 3 else 0, int(case == 4),
+                         int(rng.integers(0, 13 * CH)), int(case in (5, 6)),
+                         int(rng.integers(0, CH))], dtype=torch.int64,
+                        device=card)
+    por = torch.tensor([3, 5, min(2, vcnt)], dtype=torch.int64,
+                       device=card) if case % 2 else None
+    args = [part, torch.tensor(case == 6, device=card), por] + [
+        torch.as_tensor(x, device=card) for x in (
+            rng.integers(-2**31, 2**31, (VC, 5)).astype(np.int32),
+            rng.integers(-2**31, 2**31, (VC, PW)).astype(np.int32))]
+    acc = [rng.integers(-9, 9, (AccCap, w)).astype(np.int32)
+           for w in (5, PW)]
+    frontier = torch.as_tensor(rng.integers(0, 99, (FC, PW))
+                               .astype(np.int32), device=card)
+    out = {}
+    for name, f in (("kernel", ops.resident_fold),
+                    ("twin", ops.resident_fold_twin)):
+        carry = torch.tensor([stat0, acc_n0, 50, 0, 1, 2, 3],
+                             dtype=torch.int64, device=card)
+        bad = torch.full((PW,), SENT, dtype=torch.int32, device=card)
+        ak, ar = (torch.as_tensor(a.copy(), device=card) for a in acc)
+        f(carry, bad, *args, ak, ar, frontier, 1 << 13, CH, True, OV_PACK)
+        torch.cuda.synchronize()
+        out[name] = (carry, bad, ak, ar)
+    for a, b in zip(out["kernel"], out["twin"]):
+        _eq(a, b)
+
+
+# the CPU formula's starting caps, given to both devices so that their
+# growth lines are the same
+RES_CAPS = {"SC": 1 << 15, "FCap": 2048, "AccCap": 1 << 15, "VC": 1 << 13}
+
+
+@pytest.mark.parametrize("spec,cfg,kw", [
+    ("transfer_scaled.tla", None, {}),
+    ("pcal_intro_buggy.tla", None, {}),
+    ("batchtoy.tla", "batchtoy_bad.cfg", {}),
+    ("portoy.tla", "portoy_bad.cfg", {"por": True}),
+    ("symtoy_scaled.tla", "symtoy_scaled.cfg", {"chunk": 256}),
+    ("ooc_scaled.tla", "ooc_scaled.cfg",
+     {"seen_cap": 512, "host_tier_keys": 1024, "chunk": 256}),
+])
+def test_resident_on_the_card_equals_the_cpu(card, spec, cfg, kw, tmp_path):
+    """The resident engine on the card (K1-K4, K8, K9, and K5/K6 where
+    the model asks) and on the CPU: verdict, counts, the decoded
+    violation state, warnings, tier statistics and every log line."""
+    from jaxmc_torch.backend.bfs import TorchExplorer
+    from jaxmc_torch.engine.explore import format_trace
+    from jaxmc_torch.kernels import ops
+    from jaxmc_torch.session import load_model
+    res = {}
+    for dev in ("cuda", "cpu"):
+        m = load_model(os.path.join(SPECS, spec),
+                       os.path.join(SPECS, cfg) if cfg else None,
+                       no_deadlock="symtoy" in spec)
+        lines = []
+        ops.reset_launches()
+        r = TorchExplorer(m, device=dev, resident=True, log=lines.append,
+                          progress_every=1e9, res_caps=RES_CAPS,
+                          spill_dir=str(tmp_path / dev), **kw).run()
+        if dev == "cuda":
+            for k in ("unpack_rows", "resident_compact",
+                      "resident_compact_explore", "resident_fold",
+                      "seen_probe", "rank_merge"):
+                assert ops.LAUNCHES[k] > 0, (k, ops.LAUNCHES)
+            assert ops.LAUNCHES["hstep_epilogue"] == 0
+        tiers = {k: v for k, v in (r.tiers or {}).items()
+                 if k != "probe_wall_s"}
+        res[dev] = (r.ok, r.generated, r.distinct, r.diameter, r.warnings,
+                    r.violation and format_trace(r.violation), tiers, lines)
+    assert res["cuda"] == res["cpu"]
+    if "seen_cap" in kw:
+        assert res["cuda"][6]["spills"] > 0
+
+
+def test_tiered_level_engine_on_the_card_equals_the_cpu(card, tmp_path):
+    from jaxmc_torch.backend.bfs import TorchExplorer
+    from jaxmc_torch.engine.explore import format_trace
+    from jaxmc_torch.session import load_model
+    res = {}
+    for dev in ("cuda", "cpu"):
+        m = load_model(os.path.join(SPECS, "ooc_scaled.tla"),
+                       os.path.join(SPECS, "ooc_scaled_bad.cfg"))
+        lines = []
+        r = TorchExplorer(m, device=dev, log=lines.append, seen_cap=512,
+                          host_tier_keys=1024, progress_every=1e9,
+                          spill_dir=str(tmp_path / dev)).run()
+        res[dev] = (r.ok, r.generated, r.distinct, r.diameter,
+                    r.violation and format_trace(r.violation),
+                    r.tiers["spills"], lines)
+    assert res["cuda"] == res["cpu"]
+
+
+def test_resident_level_does_not_synchronise(card):
+    """One level's chunk loop and level end run with no host
+    synchronisation between the emitter's output and the summary read:
+    torch.cuda.set_sync_debug_mode("error") is on around the code the
+    resident engine adds (off inside the emitter and the predicates).
+    A first run on the same engine fills the per-device caches (the
+    lane plan's tensors, the kernel libraries)."""
+    from jaxmc_torch.backend.bfs import TorchExplorer
+    from jaxmc_torch.session import load_model
+
+    def quiet(f):
+        def g(*a):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("default")
+            try:
+                return f(*a)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        return g
+
+    class NoSync(TorchExplorer):
+        levels = 0
+        armed = False
+
+        def _res_level(self, *a):
+            if not self.armed:
+                return super()._res_level(*a)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = super()._res_level(*a)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            NoSync.levels += 1
+            return out
+
+        def _expand(self, frontier):
+            return quiet(super()._expand)(frontier)
+
+    for spec, cfg, kw in (("transfer_scaled.tla", None, {}),
+                          ("msgstoy.tla", "msgstoy.cfg", {"por": True})):
+        eng = NoSync(load_model(os.path.join(SPECS, spec),
+                                os.path.join(SPECS, cfg) if cfg else None,
+                                no_deadlock=True),
+                     resident=True, **kw)
+        eng.inv_fns = [(n, quiet(f)) for n, f in eng.inv_fns]
+        eng.constraint_fns = [(n, quiet(f)) for n, f in eng.constraint_fns]
+        eng.run()
+        eng.armed = True
+        try:
+            r = eng.run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert r.ok and NoSync.levels > 5

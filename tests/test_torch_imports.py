@@ -97,8 +97,9 @@ def test_unported_modes_are_refused(why, item, tmp_path):
 
 @pytest.mark.parametrize("flag,item", [
     (["--host-seen", "--checkpoint", "x.ck"], "A.15"),
-    (["--seen-cap", "64"], "A.9"),
-    (["--resident"], "A.10"), (["--checkpoint", "x.ck"], "A.15"),
+    (["--resident", "--checkpoint", "x.ck"], "A.15"),
+    (["--seen-cap", "64", "--resume", "x.ck"], "A.15"),
+    (["--checkpoint", "x.ck"], "A.15"),
 ])
 def test_cli_refuses_unported_options_by_item(flag, item, capsys):
     from jaxmc_torch.cli import main
