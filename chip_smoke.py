@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Smoke run of the torch port on one CUDA card: builds the nine
+"""Smoke run of the torch port on one CUDA card: builds the ten
 hand-written kernels and the native fingerprint store, holds each
 kernel against its plain PyTorch twin at the shapes the engines give
 it, times both, and checks models end to end through the port's entry
 points: the level engine, the chunked host-seen engine, the resident
-engine and the out-of-core seen tiers.
+engine, the out-of-core seen tiers, temporal and refinement PROPERTYs,
+and cross-model batching.
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
@@ -71,6 +72,33 @@ Phases (any failure raises; the exit code is then not 0):
  16 tiers      transfer_scaled_4p --resident --seen-cap 4194304 and
                ooc_scaled on the level engine (--seen-cap 512, a host
                budget of 1024 keys): the pins, with spills
+ 17 properties jaxmc_torch/fixtures/transfer_props.tla (EXTENDS
+               transfer_scaled, loaded with -I specs) at MaxMoney 12
+               with a refinement that holds (Monotone), one that fails
+               (Frozen) and a temporal property that holds under weak
+               fairness (AllDone, LiveSpec) and fails without it
+               (Spec): each on the level engine and under --host-seen
+               --chunk 65536, on the kernels, on the twins and on the
+               CPU, in a pool of worker processes (the host checkers
+               are single-threaded Python), but the level engine's
+               runs on the kernels alone after the pool; card runs
+               equal the CPU run; K8's edge site launched on the level
+               engine; wall, edges streamed and the host checker's
+               share; then K8's
+               edge site against its twin and torch.nonzero at the
+               level with the most edges (row
+               "resident_compact_edges@props")
+ 18 batch      a cohort of three msgstoy members (Procs {p1..p4}, T 6,
+               Cap 1, 2 and 3: fixtures/msgstoy_batch_cap*.cfg)
+               through BatchCheckEngine at chunk 65,536 on the kernels
+               and on the twins: each member equal to its solo
+               --host-seen run on the card and to the formula's pins,
+               max_width 3, K10 launched and K7 not; the cohort's wall
+               against the solo walls, the dispatches, peak device
+               memory; K10 against its twin and the library call at
+               the busiest dispatch (row "batch_epilogue@msgstoy3");
+               the batchtoy_{a,b,c,d,bad} cohort on the card equal to
+               the CPU
 The last three lines are the `nvidia-smi` name and power limit, the
 kernel table as JSON and {"ok": true, "device": {...}}.
 
@@ -98,6 +126,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
 # non-tensor INT32 peak: 64 INT32 lanes per SM and clock, half the
 # 128 fp32 lanes that give the data sheet's 67 TFLOP/s fp32
 INT_OPS_PER_S = 33.5e12
+# written between timed calls when a kernel's inputs would otherwise stay
+# in the 50 MB L2 from one call to the next
+L2_FLUSH_BYTES = 256 << 20
 
 PINS = (153701, 311153, 9)     # jaxmc/corpus.py transfer_scaled pins
 # the kernels a search without SYMMETRY, VIEW or --por launches
@@ -144,7 +175,23 @@ RES_CAPS_CPU = {"SC": 1 << 15, "FCap": 2048, "AccCap": 1 << 15,
 # out-of-core settings of the reference's acceptance run
 OOC_PINS = (3072, 12289)
 SEEN_CAP_4P = 4194304
+# the 4-process model's initial states (|1..12|^4), the seen table's
+# rows before the first resident level
+N_INIT_4P = 12 ** 4
 SPILL = os.path.join(ROOT, "jaxmc_torch", "kernels", "_build", "spill")
+# phase 17: the PROPERTY fixtures, the verdict each must reach, and the
+# worker pool that runs their kernels, twins and CPU runs side by side
+PROPS = os.path.join(FIXTURES, "transfer_props.tla")
+PROP_WANT = {"monotone": (True, None), "frozen": (False, "Frozen"),
+             "live": (True, None), "nolive": (False, "AllDone")}
+# the host checkers' rough cost order (longest first into the pool)
+PROP_ORDER = ("live", "monotone", "nolive", "frozen")
+PROP_WORKERS = 8
+# phase 18: the msgstoy cohort and its pins (Cap+1)^(4+T) + (Cap+1)^(3+T)
+CAPS_BATCH = (1, 2, 3)
+CFG_BATCH = [os.path.join(FIXTURES, f"msgstoy_batch_cap{c}.cfg")
+             for c in CAPS_BATCH]
+PINS_BATCH = [(c + 1) ** 10 + (c + 1) ** 9 for c in CAPS_BATCH]
 
 
 def log(msg: str) -> None:
@@ -251,10 +298,28 @@ def capture_busiest_level(cfg, want):
     return eng, got
 
 
-def cuda_time(fn, reps=20, warm=3):
-    """Mean ms per call over `reps` calls, CUDA events, after warm-up."""
+def _flusher():
+    buf = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=DEVICE)
+    return buf.zero_
+
+
+def cuda_time(fn, reps=20, warm=3, flush=False):
+    """Mean ms per call over `reps` calls, CUDA events, after warm-up;
+    with `flush`, each call is timed on its own after L2_FLUSH_BYTES are
+    written, so its inputs come from HBM."""
     for _ in range(warm):
         fn()
+    if flush:
+        clear = _flusher()
+        evs = [(torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+        for a, b in evs:
+            clear()
+            a.record()
+            fn()
+            b.record()
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in evs) / reps
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
@@ -1068,19 +1133,25 @@ def phase_resident(tag, spec, cfg, pins, por_pins=None, twins=True,
             if missing or counts["hstep_epilogue"]:
                 raise AssertionError(f"{tag}: kernels not launched "
                                      f"{missing}, or K7 launched")
-            out["counts"], out["result"] = counts, (r, wall, peak)
+            out["counts"] = counts
+            out["result"] = (r, wall, peak, list(tel.levels), eng.K,
+                             eng.PW)
     return out["counts"], captured, out["result"]
 
 
-def device_ms(fn, key, reps=10):
+def device_ms(fn, key, reps=10, flush=False):
     """The device time of the kernels whose names hold `key`, per call
     of fn, from the profiler: the event times also hold the wrapper's
-    host work when that is the longer of the two."""
+    host work when that is the longer of the two.  With `flush`,
+    L2_FLUSH_BYTES are written before each call (the write's own kernel
+    is not counted)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
+    clear = _flusher() if flush else (lambda: None)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            clear()
             fn()
         torch.cuda.synchronize()
     return sum(e.time_range.elapsed_us() for e in prof.events()
@@ -1166,6 +1237,26 @@ def check_resident(captured, launches, tag="14 resident"):
     return rows
 
 
+def resident_bound(result, n_init, tag="14 bounds"):
+    """The resident search's (B.10) byte bound, the sum of its committed
+    levels' bounds as the level step's (B.7) is reckoned: each level's
+    frontier rows and live seen prefix read, its merged seen table and
+    new frontier written.  Printed beside the run's wall."""
+    r, wall, _peak, levels, K, PW = result
+    nbytes, seen_prev, n = 0, n_init, 0
+    for lv in levels:
+        if lv.get("status") in (6, 7, 8, 9, 10):   # ST_OVF_*: redone
+            continue
+        n += 1
+        nbytes += (lv["frontier"] * PW + seen_prev * K + lv["seen"] * K
+                   + lv["new"] * PW) * 4
+        seen_prev = lv["seen"]
+    bms, by = _bound(nbytes, 0)
+    log(f"[{tag}] resident search (B.10): wall {wall:.3f}s, bound "
+        f"{bms:.4f} ms ({by}; {nbytes / 2**20:.1f} MiB over {n} committed "
+        f"levels of {len(levels)} level runs)")
+
+
 def phase_resident_verdicts(tag="15 res reduce"):
     """pcal_intro_buggy, batchtoy_bad and portoy_bad --por under
     --resident on the card and on the CPU, from the same starting caps:
@@ -1211,7 +1302,7 @@ def phase_tiers(pins_4p, tag="16 tiers"):
     from jaxmc_torch.session import load_model
     shutil.rmtree(SPILL, ignore_errors=True)
     try:
-        counts, _, (r, wall, peak) = phase_resident(
+        counts, _, (r, wall, peak, *_rest) = phase_resident(
             tag, "transfer_scaled.tla", CFG_4P, pins_4p, twins=False,
             seen_cap=SEEN_CAP_4P, spill_dir=os.path.join(SPILL, "4p"))
         if not r.tiers or r.tiers["spills"] <= 0:
@@ -1233,6 +1324,371 @@ def phase_tiers(pins_4p, tag="16 tiers"):
                                  f"{r.generated} tiers {r.tiers}")
     finally:
         shutil.rmtree(SPILL, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 17: temporal and refinement PROPERTYs
+# ---------------------------------------------------------------------------
+
+def _props_job(prop, host_seen, variant):
+    """One phase-17 run, in a worker process: transfer_props with the
+    `prop` cfg on the level engine or under --host-seen at CHUNK_HS, on
+    the kernels, the twins or the CPU.  Every launch counter is set to
+    0 just before the search and read just after.  Returns the result's
+    summary, the wall, the host checker's time (the stepwise refinement
+    checks and the liveness check) and the edges it was given."""
+    torch.set_num_threads(1)
+    from jaxmc_torch.backend.bfs import TorchExplorer
+    from jaxmc_torch.engine.explore import format_trace
+    from jaxmc_torch.kernels import ops
+    from jaxmc_torch.session import load_model
+    checker = {"s": 0.0, "edges": 0}
+
+    class Timed(TorchExplorer):
+        def _refine_edges(self, frontier_rows, rows, idx, FC):
+            t = time.time()
+            try:
+                return super()._refine_edges(frontier_rows, rows, idx, FC)
+            finally:
+                checker["s"] += time.time() - t
+                checker["edges"] += len(idx)
+
+        def _check_live(self, graph, warnings):
+            t = time.time()
+            try:
+                return super()._check_live(graph, warnings)
+            finally:
+                checker["s"] += time.time() - t
+                checker["edges"] += len(graph.edges)
+
+    dev = "cpu" if variant == "cpu" else DEVICE
+    model = load_model(PROPS, os.path.join(FIXTURES,
+                                           f"transfer_props_{prop}.cfg"),
+                       False, [SPECS])
+    eng = Timed(model, device=dev, host_seen=host_seen, chunk=CHUNK_HS,
+                twins=variant == "twins", progress_every=1e9)
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.time()
+    r = eng.run()
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = dict(ops.LAUNCHES)
+    v = r.violation
+    return dict(summary=(r.ok, r.generated, r.distinct, r.diameter,
+                         tuple(r.warnings), v and v.kind, v and v.name,
+                         v and v.message, v and format_trace(v)),
+                wall=wall, checker_s=checker["s"], edges=checker["edges"],
+                launches=counts)
+
+
+def phase_props(tag="17 properties"):
+    """The PROPERTY runs in a pool of worker processes (spawned; each
+    starts its own CUDA context; they share the card and the host's
+    cores), then each cfg's level-engine run on the kernels alone in
+    this process, so that its wall and its host checker's share are
+    the run's own; then K8's edge site timed here."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+    alone = [(p, False, "kernels") for p in PROP_ORDER]
+    jobs = [(p, hs, v) for p in PROP_ORDER for hs in (False, True)
+            for v in ("kernels", "twins", "cpu") if (p, hs, v) not in alone]
+    t0 = time.time()
+    ex = ProcessPoolExecutor(max_workers=PROP_WORKERS,
+                             mp_context=mp.get_context("spawn"))
+    try:
+        futs = {j: ex.submit(_props_job, *j) for j in jobs}
+        res = {j: f.result() for j, f in futs.items()}
+    finally:
+        ex.shutdown(wait=True, cancel_futures=True)
+    log(f"[{tag}] {len(jobs)} runs in {time.time() - t0:.1f}s "
+        f"({PROP_WORKERS} worker processes)")
+    t0 = time.time()
+    threads = torch.get_num_threads()
+    try:
+        for j in alone:
+            res[j] = _props_job(*j)
+    finally:
+        torch.set_num_threads(threads)
+    log(f"[{tag}] {len(alone)} runs alone in {time.time() - t0:.1f}s")
+    edge_launches = 0
+    for p in PROP_ORDER:
+        for hs in (False, True):
+            eng = "host-seen" if hs else "level"
+            cpu = res[(p, hs, "cpu")]
+            ok, name = PROP_WANT[p]
+            s = cpu["summary"]
+            if s[0] is not ok or s[6] != name or \
+                    (name and s[5] != "property"):
+                raise AssertionError(f"{tag}: {p} {eng} cpu verdict "
+                                     f"{s[0]} {s[5]} {s[6]}")
+            for variant in ("kernels", "twins"):
+                r = res[(p, hs, variant)]
+                lc = r["launches"]
+                how = "alone" if (p, hs, variant) in alone else "pool"
+                log(f"[{tag}] {p} {eng} {variant} ({how}): "
+                    f"ok={r['summary'][0]} "
+                    f"{r['summary'][5] or ''} {r['summary'][6] or ''} "
+                    f"generated {r['summary'][1]} distinct "
+                    f"{r['summary'][2]} diameter {r['summary'][3]}; wall "
+                    f"{r['wall']:.3f}s, edges streamed {r['edges']}, host "
+                    f"checker {r['checker_s']:.3f}s "
+                    f"({100 * r['checker_s'] / max(r['wall'], 1e-9):.1f}% "
+                    f"of the wall); card == cpu: "
+                    f"{r['summary'] == cpu['summary']}"
+                    + ("" if variant == "twins" else f"; launches {lc}"))
+                if r["summary"] != cpu["summary"]:
+                    raise AssertionError(f"{tag}: {p} {eng} {variant} "
+                                         f"differs from the cpu run")
+                if variant == "twins" and any(lc.values()):
+                    raise AssertionError(f"{tag}: twin run launched "
+                                         f"kernels")
+                if variant == "kernels":
+                    need = "hstep_epilogue" if hs else \
+                        "resident_compact_edges"
+                    if lc[need] <= 0:
+                        raise AssertionError(f"{tag}: {p} {eng}: {need} "
+                                             f"not launched")
+                    if not hs:
+                        edge_launches += lc["resident_compact_edges"]
+            log(f"[{tag}] {p} {eng} cpu (pool): wall {cpu['wall']:.3f}s, host "
+                f"checker {cpu['checker_s']:.3f}s")
+    return check_edges(edge_launches, tag)
+
+
+def check_edges(launches, tag):
+    """K8 at the `edges` site against its twin and torch.nonzero, bit
+    for bit and timed, on the level with the most edges of transfer_
+    props (a capture run of the level engine on the kernels; its
+    liveness check is skipped: the run only captures)."""
+    from jaxmc_torch.backend.bfs import TorchExplorer
+    from jaxmc_torch.kernels import ops
+    from jaxmc_torch.session import load_model
+    got = {}
+
+    class Capture(TorchExplorer):
+        def _compact(self, mask, cap, flim=None, aok=None, ov=None,
+                     site=""):
+            out = super()._compact(mask, cap, flim, aok, ov, site)
+            n = int(out[1][0])
+            if site == "edges" and n > got.get("n", -1):
+                got.update(n=n, mask=mask.clone(), cap=cap)
+            return out
+
+        def _check_live(self, graph, warnings):
+            return None
+
+    Capture(load_model(PROPS, os.path.join(FIXTURES,
+                                           "transfer_props_nolive.cfg"),
+                       False, [SPECS]), device=DEVICE, store_trace=False,
+            progress_every=1e9).run()
+    mask, cap, n = got["mask"], got["cap"], got["n"]
+    C = mask.shape[0]
+    k = ops.resident_compact(mask, cap, site="edges")
+    t = ops.resident_compact_twin(mask, cap)
+    torch.cuda.synchronize()
+    err = max(_max_abs(k[0], t[0]), _max_abs(k[1], t[1]))
+
+    def library():
+        return torch.nonzero(mask).flatten()
+    if _max_abs(library(), k[0][:n]):
+        raise AssertionError("torch.nonzero yardstick disagrees")
+    dev_ms = device_ms(lambda: ops.resident_compact(mask, cap,
+                                                    site="edges"),
+                       "compact_")
+    # the level step reads idx[:n] only; the kernel also writes the C - n
+    # unset entries of the stable partition, which nothing reads
+    return _row(
+        tag, "resident_compact_edges@props",
+        "jaxmc_torch/kernels/csrc/resident.cu",
+        "jaxmc/backend/bfs.py:1925", launches, err,
+        cuda_time(lambda: ops.resident_compact(mask, cap, site="edges")),
+        cuda_time(lambda: ops.resident_compact_twin(mask, cap), reps=3),
+        # the mask read once; the n kept indices and the scalars written
+        C + n * 4 + 48, C * 8, library_ms=cuda_time(library),
+        note=f" [C={C} edges={n}; 3 launches, device time "
+             f"{dev_ms:.4f} ms; launches summed over the four level-"
+             f"engine kernel runs]")
+
+
+# ---------------------------------------------------------------------------
+# phase 18: cross-model batching
+# ---------------------------------------------------------------------------
+
+def _cohort(cfgs, spec, twins, device=DEVICE, keep=False):
+    """One BatchCheckEngine cohort at CHUNK_HS: build, then run with
+    every launch counter set to 0 just before and read just after.
+    Returns (engine, members, build wall, run wall, launches, peak)."""
+    from jaxmc_torch.backend.batch import BatchCheckEngine
+    from jaxmc_torch.kernels import ops
+    from jaxmc_torch.session import SessionConfig
+    t0 = time.time()
+    be = BatchCheckEngine([SessionConfig(spec=spec, cfg=c, host_seen=True,
+                                         chunk=CHUNK_HS, device=device)
+                           for c in cfgs], twins=twins).build()
+    build = time.time() - t0
+    if keep:
+        # keep the stacked chunk of the dispatch with the most valid
+        # candidates (the dispatcher reads the offsets right after)
+        donor = be.dispatcher.donor
+        step = donor._hstep_batch
+
+        def keep_busiest(frontier_p, fc, cvecs):
+            out = step(frontier_p, fc, cvecs)
+            n = int(out["offsets"][-1])
+            if n > be.busiest[0]:
+                be.busiest = (n, (frontier_p, list(fc)))
+            return out
+        be.busiest = (-1, None)
+        donor._hstep_batch = keep_busiest
+    if device != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.time()
+    members = be.run()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    run = time.time() - t0
+    counts = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if device != "cpu" else 0
+    for m in members:
+        if m.error is not None:
+            raise AssertionError(f"batch member {m.model.module.name} "
+                                 f"failed: {m.error!r}")
+    return be, members, build, run, counts, peak
+
+
+def phase_batch(tag="18 batch"):
+    from jaxmc_torch.backend.bfs import TorchExplorer
+    from jaxmc_torch.session import load_model
+    spec = os.path.join(SPECS, "msgstoy.tla")
+    res = {}
+    for kind, twins in (("kernels", False), ("twins", True)):
+        be, members, build, run, counts, peak = _cohort(
+            CFG_BATCH, spec, twins, keep=not twins)
+        disp = be.dispatcher
+        res[kind] = [_summary(m.result) + (tuple(m.result.warnings),)
+                     for m in members]
+        log(f"[{tag}] msgstoy cohort {kind}: build {build:.3f}s + run "
+            f"{run:.3f}s; {disp.dispatches} dispatches, max_width "
+            f"{disp.max_width}; peak {peak / 2**30:.2f} GiB; lifted "
+            f"{list(be.lift_names)}; distinct "
+            f"{[m.result.distinct for m in members]} generated "
+            f"{[m.result.generated for m in members]}; launches {counts}")
+        if disp.max_width != len(CFG_BATCH):
+            raise AssertionError(f"{tag}: max_width {disp.max_width}")
+        if [m.result.distinct for m in members] != PINS_BATCH or \
+                not all(m.result.ok for m in members):
+            raise AssertionError(f"{tag}: distinct != {PINS_BATCH}")
+        if twins and any(counts.values()):
+            raise AssertionError(f"{tag}: twin cohort launched kernels")
+        if not twins:
+            if counts["batch_epilogue"] <= 0 or counts["hstep_epilogue"]:
+                raise AssertionError(f"{tag}: K10 not launched or K7 "
+                                     f"launched: {counts}")
+            launches, donor, cohort_wall = counts, be, build + run
+    if res["kernels"] != res["twins"]:
+        raise AssertionError(f"{tag}: kernels cohort != twins cohort")
+    solo_wall = 0.0
+    for c, want in zip(CFG_BATCH, res["kernels"]):
+        t0 = time.time()
+        r = TorchExplorer(load_model(spec, c), device=DEVICE,
+                          host_seen=True, chunk=CHUNK_HS,
+                          progress_every=1e9).run()
+        torch.cuda.synchronize()
+        w = time.time() - t0
+        solo_wall += w
+        got = _summary(r) + (tuple(r.warnings),)
+        log(f"[{tag}] solo {os.path.basename(c)}: {w:.3f}s (build and "
+            f"run), distinct {r.distinct}; == cohort member: {got == want}")
+        if got != want:
+            raise AssertionError(f"{tag}: {c} solo != cohort member")
+    log(f"[{tag}] cohort wall {cohort_wall:.3f}s against the sum of the "
+        f"solo walls {solo_wall:.3f}s (ratio "
+        f"{solo_wall / max(cohort_wall, 1e-9):.2f}x, not gated)")
+    row = check_batch_epilogue(donor, launches["batch_epilogue"], tag)
+    # batchtoy: a violation in one member, card against CPU
+    bt = os.path.join(SPECS, "batchtoy.tla")
+    cfgs = [os.path.join(SPECS, f"batchtoy_{v}.cfg")
+            for v in ("a", "b", "c", "d", "bad")]
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        be, members, _b, _r, counts, _p = _cohort(cfgs, bt, False, dev)
+        out[dev] = [_summary(m.result) + (tuple(m.result.warnings),)
+                    for m in members]
+        if dev == DEVICE and counts["batch_epilogue"] <= 0:
+            raise AssertionError(f"{tag}: batchtoy cohort without K10")
+    bad = out[DEVICE][-1]
+    log(f"[{tag}] batchtoy cohort: bad member {bad[4]} {bad[5]}, trace "
+        f"{bad[6].count('State ') if bad[6] else 0} states; cuda == cpu: "
+        f"{out[DEVICE] == out['cpu']}")
+    if out[DEVICE] != out["cpu"] or bad[4] != "invariant":
+        raise AssertionError(f"{tag}: batchtoy cohort differs")
+    return row
+
+
+def check_batch_epilogue(be, launches, tag):
+    """K10 against its twin and against torch.nonzero + index_select, bit
+    for bit and timed, at the dispatch with the most valid candidates
+    (its inputs rebuilt from the kept stacked chunk)."""
+    from jaxmc_torch.compile.kernel2 import OV_PACK
+    from jaxmc_torch.kernels import ops
+    disp = be.dispatcher
+    donor = be.members[0].engine
+    _n, (frontier_p, fc) = be.busiest
+    en, aok, ov, keys, cand, povf, inv, exp = donor._hstep_cands(
+        frontier_p, fc, disp._cvecs)
+    fct = torch.as_tensor(fc, dtype=torch.int32, device=en.device)
+    args = (en, aok, ov, fct, keys, cand, povf, OV_PACK, inv, exp)
+    k = ops.batch_epilogue(*args)
+    t = ops.batch_epilogue_twin(*args)
+    torch.cuda.synchronize()
+    nv = int(t["offsets"][-1])
+    names = ("idx", "fps", "rows", "inv_ok", "explore")
+    err = max(_max_abs(k["scalars"], t["scalars"]),
+              _max_abs(k["dead"], t["dead"]),
+              _max_abs(k["offsets"], t["offsets"]),
+              max(_max_abs(k[n][:nv], t[n][:nv]) for n in names))
+    B, A, CH = en.shape
+    C, PW = A * CH, cand.shape[1]
+    fv = torch.arange(CH, device=en.device)[None, :] < fct[:, None]
+
+    def library():
+        idx = torch.nonzero((en & fv[:, None, :]).reshape(-1)).flatten()
+        return (keys.index_select(0, idx), cand.index_select(0, idx),
+                inv.index_select(0, idx), exp.index_select(0, idx))
+    lib = library()
+    if _max_abs(lib[1], k["rows"][:nv]) or \
+            _max_abs(lib[0][:, 1:], k["fps"][:nv]):
+        raise AssertionError("nonzero + index_select yardstick disagrees")
+    # the inputs (about 55 MB) outgrow the 50 MB L2 only just, so every
+    # time of this row is taken with L2 written over before each call;
+    # the warm device time is printed beside it
+    dev_ms = device_ms(lambda: ops.batch_epilogue(*args), "batch_",
+                       flush=True)
+    warm_ms = device_ms(lambda: ops.batch_epilogue(*args), "batch_")
+    live = sum(fc)          # the frontier slots below each member's count
+    return _row(
+        tag, "batch_epilogue@msgstoy3", "jaxmc_torch/kernels/csrc/batch.cu",
+        "jaxmc/backend/batch.py:99", launches, err,
+        cuda_time(lambda: ops.batch_epilogue(*args), flush=True),
+        cuda_time(lambda: ops.batch_epilogue_twin(*args), reps=3,
+                  flush=True),
+        # en, aok and ov of the live slots' candidates and their dead
+        # flags; the valid candidates' four fingerprint words, row words
+        # and two predicate bits read and written compacted with their
+        # index; the scalars and the offsets written; the counts and
+        # flags of the members read
+        live * A * 6 + live + nv * (16 + PW * 4 + 2) * 2 + nv * 4
+        + B * 53 + (B + 1) * 8,
+        live * A * 8 + nv * (7 + PW),
+        library_ms=cuda_time(library, flush=True),
+        note=f" [B={B} A={A} CH={CH} fcount={fc} valid={nv} PW={PW}; "
+             f"3 launches; L2 flushed before each call; device time "
+             f"{dev_ms:.4f} ms, warm {warm_ms:.4f} ms]")
 
 
 def main() -> int:
@@ -1294,8 +1750,9 @@ def main() -> int:
                     POR_PINS_HS, por=True)
     phase_hybrid()
 
-    counts, captured, _ = phase_resident("14 resident", "transfer_scaled.tla",
-                                         CFG_4P, counts_4p)
+    counts, captured, res_result = phase_resident(
+        "14 resident", "transfer_scaled.tla", CFG_4P, counts_4p)
+    resident_bound(res_result, N_INIT_4P)
     table += check_resident(captured, counts)
     del captured
     no_keys = tuple(k for k in RES_KERNELS if k != "keys_of")
@@ -1307,6 +1764,8 @@ def main() -> int:
                    need=RES_KERNELS + ("seen_probe_por", "por_mask"))
     phase_resident_verdicts()
     phase_tiers(counts_4p)
+    table.append(phase_props())
+    table.append(phase_batch())
     log(f"[done] {time.time() - t_start:.1f}s")
     print(f"{smi}")
     print(json.dumps({"kernels": table}))

@@ -121,6 +121,7 @@ def filter_init_states(model, layout, init_rows):
 
 
 _POR_UNSET = object()
+_NO_REPORT = object()
 
 
 def _pow2_at_least(n: int, lo: int = 256) -> int:
@@ -164,6 +165,68 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+class _LiveGraph:
+    """Host-side behavior-graph accumulator (bfs._LiveGraph).
+
+    Mirrors the interp engine's bookkeeping (engine/explore.py): kept
+    states get dense ids in discovery order; edges record every
+    (parent, kept-successor) step including re-visits of already-seen
+    states; parents/labels form the BFS tree for trace reconstruction.
+    Constraint-discarded successors never enter the graph — the same
+    mask that keeps them off the frontier keeps them out here."""
+
+    def __init__(self, labels_flat: List[str], collect_edges: bool):
+        self.labels_flat = labels_flat
+        self.collect_edges = collect_edges
+        self.rows: List[np.ndarray] = []
+        self.sid_by_key: Dict[bytes, int] = {}
+        self.parents: List[Optional[int]] = []
+        self.labels: List[str] = []
+        self.edges: List[Tuple[int, int]] = []
+
+    def add_inits(self, init_rows, explored_idx) -> np.ndarray:
+        sids = []
+        for i in explored_idx:
+            row = np.array(init_rows[i], copy=True)
+            sid = len(self.rows)
+            self.rows.append(row)
+            self.sid_by_key[row.tobytes()] = sid
+            self.parents.append(None)
+            self.labels.append("Initial predicate")
+            sids.append(sid)
+        return np.asarray(sids, dtype=np.int64)
+
+    def add_level(self, new_rows, new_prov, par_div: int,
+                  frontier_sids: np.ndarray) -> np.ndarray:
+        """Register this level's kept rows; prov = action*par_div + f."""
+        sids = []
+        for i in range(len(new_rows)):
+            row = np.array(new_rows[i], copy=True)
+            sid = len(self.rows)
+            self.rows.append(row)
+            self.sid_by_key[row.tobytes()] = sid
+            p = int(new_prov[i])
+            a, f = p // par_div, p % par_div
+            self.parents.append(int(frontier_sids[f]))
+            self.labels.append(self.labels_flat[a])
+            sids.append(sid)
+        return np.asarray(sids, dtype=np.int64)
+
+    def add_edges(self, rows: np.ndarray, parent_f: np.ndarray,
+                  frontier_sids: np.ndarray) -> None:
+        """Record edges (frontier_sids[parent_f[i]] -> sid of rows[i]) for
+        kept candidates; call after add_level so same-level successors
+        resolve.  A target resolves by its packed row's bytes."""
+        if not self.collect_edges:
+            return
+        for i in range(len(rows)):
+            t = self.sid_by_key.get(rows[i].tobytes())
+            if t is None:
+                continue  # fp-collision shadow; counts already report it
+            self.edges.append(
+                (int(frontier_sids[int(parent_f[i])]), t))
+
+
 class TorchExplorer:
     """Level-synchronous BFS over the device-resident seen table, or
     (host_seen=True) over the native host fingerprint store in chunks,
@@ -183,7 +246,35 @@ class TorchExplorer:
                  spill_dir: Optional[str] = None,
                  host_tier_keys: Optional[int] = None,
                  resident: bool = False,
-                 res_caps: Optional[Dict[str, int]] = None):
+                 res_caps: Optional[Dict[str, int]] = None,
+                 lift_consts: Optional[Tuple[str, ...]] = None,
+                 donor: Optional["TorchExplorer"] = None):
+        # cross-model batching: `lift_consts` compiles the named
+        # CONSTANTs as per-row inputs of the emitter instead of baked
+        # scalars, so one engine serves every model that differs only in
+        # those values; `donor` clones a FOLLOWER engine that reuses the
+        # donor's layout and compiled units while keeping its own model,
+        # init states and seen store (backend/batch.py)
+        self._hstep_override: Optional[Callable] = None
+        # device POR: the plan (instance -> arm map, por-safe arms) is
+        # resolved once by _por_plan(), which names the refusal when the
+        # reduction cannot run
+        self.por = bool(por)
+        self.por_reason: Optional[str] = None
+        self._por_memo: Any = _POR_UNSET
+        self._por_stats = {"ample": 0, "expanded": 0, "masked": 0}
+        if donor is not None:
+            self._clone_from_donor(donor, model, log=log,
+                                   max_states=max_states,
+                                   store_trace=store_trace,
+                                   progress_every=progress_every)
+            return
+        self._lift_names: Tuple[str, ...] = tuple(lift_consts or ())
+        if self._lift_names and not host_seen:
+            raise ModeError(
+                "lifted-constant (batchable) engines run in host_seen "
+                "mode only — the level/resident/mesh steps do not "
+                "thread constant lanes")
         # twins=True runs the kernels' plain PyTorch twins on the same
         # device: the parity oracle for the CUDA path (tests and
         # chip_smoke.py pass it; nothing else does)
@@ -216,13 +307,6 @@ class TorchExplorer:
         self.relayouts_left = relayouts_left
         self.seen_mode_req = seen_mode
         self._last_frontier_np: Optional[np.ndarray] = None
-        # device POR: the plan (instance -> arm map, por-safe arms) is
-        # resolved once by _por_plan(), which names the refusal when the
-        # reduction cannot run
-        self.por = bool(por)
-        self.por_reason: Optional[str] = None
-        self._por_memo: Any = _POR_UNSET
-        self._por_stats = {"ample": 0, "expanded": 0, "masked": 0}
         self._refuse_modes(model, self.resident, self.host_seen)
 
         tel = obs.current()
@@ -239,8 +323,16 @@ class TorchExplorer:
         # plan (and every key) is bit-identical to it
         static_bounds = None
         if bounds_enabled():
-            with tel.span("analyze_bounds"):
-                rep = infer_state_bounds(model)
+            # cached on the model, as the reference does: a batch donor
+            # finds the cohort's merged bounds there (backend/batch.py)
+            rep = getattr(model, "_bounds_report", _NO_REPORT)
+            if rep is _NO_REPORT:
+                with tel.span("analyze_bounds"):
+                    rep = infer_state_bounds(model)
+                try:
+                    model._bounds_report = rep
+                except AttributeError:
+                    pass
             if rep is not None:
                 ebf = getattr(rep, "element_bounds", None)
                 static_bounds = ebf() if callable(ebf) else rep.lane_bounds()
@@ -249,6 +341,10 @@ class TorchExplorer:
             self.layout = build_layout2(model, sampled, self.bounds,
                                         static_bounds=static_bounds)
         self.kc = KernelCtx(model, self.layout, self.bounds)
+        # this model's lifted-constant values, in _lift_names order
+        # (empty for ordinary engines — same code path)
+        self._cvec = np.asarray([int(model.defs[n])
+                                 for n in self._lift_names], np.int32)
         self.W = self.layout.width
         self.PW = self.layout.packed_width
         self.plan = self.layout.plan
@@ -277,7 +373,7 @@ class TorchExplorer:
                         ca = compile_action2(self.kc, ga)
                         for s in (range(ca.n_slots) if ca.n_slots
                                   else [None]):
-                            ca.fn(zero) if s is None else ca.fn(zero, s)
+                            self._traced_with(ca.fn, zero, s)
                         cas.append(ca)
             except CompileError as e:
                 self.fb_arms.append((arm, str(e)))
@@ -334,7 +430,7 @@ class TorchExplorer:
                 f = compile_predicate2(self.kc, ex)
                 t_tr = time.time()
                 try:
-                    f(zero)
+                    self._traced_with(f, zero)
                 except CompileError as e:
                     demoted.append((nm, ex, str(e)))
                     continue
@@ -359,8 +455,10 @@ class TorchExplorer:
                       constraints=len(model.constraints)):
             self.inv_fns, self.fb_invs = compile_preds(model.invariants,
                                                        self.host_seen)
+            # constraints under temporal/refinement PROPERTYs keep slow
+            # compiled programs: a demotion would make the run refused
             self.constraint_fns, self.fb_cons = compile_preds(
-                model.constraints, self.host_seen)
+                model.constraints, self.host_seen and not model.properties)
         # cfg VIEW: key the dedup on the view's value lanes (TLC
         # fingerprints the view); the stored rows stay full states
         self.view_fn = None
@@ -378,6 +476,17 @@ class TorchExplorer:
                 raise CompileError(
                     "cfg VIEW evaluates to zero lanes - use --backend "
                     "interp")
+        # refinement PROPERTYs check stepwise on the host over the
+        # streamed candidate edges; temporal obligations check over the
+        # behavior graph after the search (engine/liveness.py), as the
+        # interp engine does: same classifier, same checker
+        from ..engine.liveness import collect_obligations
+        from ..engine.refinement import build_refinement_checkers
+        self.refiners, self.unrefined = build_refinement_checkers(model)
+        self._ref_pair_cache: set = set()
+        self.live_obligations, self.live_unsupported, self.collect_edges = \
+            collect_obligations(model, self.refiners)
+        self._need_edges = bool(self.refiners) or self.collect_edges
         self.hybrid = bool(self.fb_arms or self.fb_invs or self.fb_cons)
         if self.hybrid:
             reasons = "; ".join(
@@ -391,6 +500,11 @@ class TorchExplorer:
                     "demoted to the exact interpreter), which only the "
                     "host_seen device mode runs — pass host_seen=True; "
                     f"demoted units: {reasons}")
+            if self.fb_cons and (self.collect_edges or self.refiners):
+                raise CompileError(
+                    "uncompilable CONSTRAINT together with temporal/"
+                    "refinement PROPERTYs is not supported on the device "
+                    f"backend — use --backend interp; units: {reasons}")
             if not self.compiled and self.fb_arms:
                 self.log("hybrid: EVERY action arm fell back to the "
                          "interpreter — the device does hashing/dedup "
@@ -479,8 +593,6 @@ class TorchExplorer:
                 "resident keeps the seen-set on device, host_seen "
                 "keeps it in the native host store")
         if resident and model.properties:
-            # the reference's own refusals for this mode take precedence
-            # over the port's PROPERTY refusal
             from ..engine.liveness import collect_obligations
             from ..engine.refinement import build_refinement_checkers
             refiners, _ = build_refinement_checkers(model)
@@ -494,10 +606,6 @@ class TorchExplorer:
                     "resident mode cannot check temporal properties "
                     "(the behavior graph stays on device) - use the "
                     "level/host_seen device modes")
-        if model.properties:
-            raise ModeError("temporal and refinement PROPERTYs are not "
-                            "ported to the torch level engine yet "
-                            "(ROADMAP A.7)")
         if model.action_constraints:
             raise CompileError("action constraints not compiled yet - "
                                "use the interp backend")
@@ -590,7 +698,11 @@ class TorchExplorer:
         [overflow, assert_any, assert_a, assert_f, dead_any, dead_f,
          gen, front_count, seen_count2, inv_any, inv_idx, inv_which],
         followed by [por_ample, por_expanded, por_masked] when the
-        device POR filter runs."""
+        device POR filter runs, or by the edge count when the run
+        streams edges (PROPERTYs; the two never meet: por_refusal turns
+        POR off for a model with PROPERTYs).  With edges the dict also
+        holds `edge_idx` (K8's stable partition of the kept candidates'
+        indices a*FC+f) and `cand` (the packed candidate rows)."""
         A, W, K = self.A, self.W, self.K
         FC = frontier_p.shape[0]
         dev = frontier_p.device
@@ -681,6 +793,21 @@ class TorchExplorer:
                                     inv_which)
             inv_any = inv_any | any_
 
+        # the edge stream (bfs.py:1925-1931) for refinement and the
+        # liveness graph: cvalid and every CONSTRAINT over every
+        # candidate, not only the new rows.  K8 compacts it on the card
+        # (a stable partition: candidate order holds); the host reads
+        # the count with the scalars, then only the kept rows
+        edge_out: Dict[str, Any] = {}
+        edge_scalars = []
+        if self._need_edges:
+            exp_all = cvalid
+            for _nm, f in self.constraint_fns:
+                exp_all = exp_all & f(cand_u)
+            eidx, epart = self._compact(exp_all, C, site="edges")
+            edge_out = dict(edge_idx=eidx, cand=cand)
+            edge_scalars = [epart[0].to(torch.int64)]
+
         # kernel overflow codes outrank the pack guard
         base_ov = overflow.max() if overflow.numel() else \
             torch.zeros((), dtype=torch.int32, device=dev)
@@ -698,11 +825,11 @@ class TorchExplorer:
             explore_count.to(torch.int64),
             rm["seen_count2"].to(torch.int64), inv_any.to(torch.int64),
             inv_idx.to(torch.int64), inv_which.to(torch.int64)]
-            + por_scalars)
+            + por_scalars + edge_scalars)
         return dict(scalars=scalars, seen=rm["seen2"],
                     front_rows=front_rows, front_prov=front_prov,
                     front_keys=front_keys, dead=dead,
-                    assert_bad=assert_bad)
+                    assert_bad=assert_bad, **edge_out)
 
     # ---- the search ----
 
@@ -747,6 +874,14 @@ class TorchExplorer:
             return init_rows, explored_init, n_init, self._mk_result(
                 False, len(explored_init) + 1, n_init, 0, t0, warnings,
                 Violation("invariant", nm, [(st, "Initial predicate")]))
+        rv = self._refine_init(init_rows, explored_init)
+        if rv is not None:
+            nm, st = rv
+            return init_rows, explored_init, n_init, self._mk_result(
+                False, len(explored_init), n_init, 0, t0, warnings,
+                Violation("property", nm, [(st, "Initial predicate")],
+                          f"initial state violates {nm}'s initial "
+                          f"predicate"))
         distinct = len(explored_init)
         self.log(f"Finished computing initial states: {distinct} distinct "
                  f"state{'s' if distinct != 1 else ''} generated.")
@@ -792,6 +927,7 @@ class TorchExplorer:
         dev = self.device
         W, K, PW = self.W, self.K, self.PW
         warnings: List[str] = []
+        warnings.extend(self._temporal_warnings())
         warnings.extend(self._symmetry_warnings())
         warnings.extend(self._por_warnings())
         if self.fp_mode:
@@ -812,6 +948,10 @@ class TorchExplorer:
                 False, distinct, generated, 0, t0, warnings,
                 Violation("error", "capacity overflow", [],
                           self._pack_ovf_msg()))
+        graph = _LiveGraph(self.labels_flat, self.collect_edges) \
+            if self.live_obligations else None
+        frontier_sids = graph.add_inits(init_packed, explored_init) \
+            if graph is not None else None
 
         FC = _pow2_at_least(max(n_init, 1))
         SC = _pow2_at_least(4 * max(n_init, 1))
@@ -905,8 +1045,28 @@ class TorchExplorer:
                     False, distinct, generated, depth, t0, warnings,
                     Violation("deadlock", "deadlock", trace))
 
+            e_rows = e_idx = None
+            if self._need_edges:
+                # the level's kept candidate edges: the count came with
+                # the scalars, the rows come compacted
+                eidx = out["edge_idx"][:vals[12]].to(torch.int64)
+                e_rows = out["cand"].index_select(0, eidx).cpu().numpy()
+                e_idx = eidx.cpu().numpy()
+            if self.refiners:
+                # the frontier of THIS level (the step read it; the next
+                # frontier is a new tensor)
+                rviol = self._refine_edges(
+                    frontier[:fcount].cpu().numpy(), e_rows, e_idx, FC)
+                if rviol is not None:
+                    a, f, sst, rc = rviol
+                    trace = self._trace_to(trace_levels, frontier_maps,
+                                           depth, f)
+                    return self._mk_result(
+                        False, distinct, generated, depth, t0, warnings,
+                        self._refine_violation(rc, sst, a, trace))
+
             generated += gen
-            if len(vals) > 12:
+            if len(vals) > 12 and not self._need_edges:
                 for name, v in zip(("ample", "expanded", "masked"),
                                    vals[12:]):
                     self._por_stats[name] += v
@@ -939,15 +1099,19 @@ class TorchExplorer:
                       wall_s=round(time.time() - lvl_t0, 6))
             self._fp_occupancy = seen_count
 
+            if (self.store_trace or graph is not None) and fr_host is None:
+                fr_host = out["front_rows"][:front_count].cpu().numpy()
+                fp_host = out["front_prov"][:front_count].cpu().numpy()
+            if graph is not None:
+                new_sids = graph.add_level(fr_host, fp_host, FC,
+                                           frontier_sids)
+                if graph.collect_edges:
+                    graph.add_edges(e_rows, e_idx % FC, frontier_sids)
+                frontier_sids = new_sids
             if self.store_trace:
                 # trace levels hold the kept states; every kept state is
                 # explored, so the frontier map is the identity
-                if fr_host is not None:
-                    trace_levels.append((fr_host, fp_host, FC))
-                else:
-                    trace_levels.append(
-                        (out["front_rows"][:front_count].cpu().numpy(),
-                         out["front_prov"][:front_count].cpu().numpy(), FC))
+                trace_levels.append((fr_host, fp_host, FC))
                 frontier_maps.append(np.arange(kept_count, dtype=np.int64))
             if inv_any:
                 if tier_keep is not None:
@@ -975,7 +1139,7 @@ class TorchExplorer:
                 FC = _pow2_at_least(kept_count, FC)
             nf = torch.full((FC, PW), int(SENTINEL), dtype=torch.int32,
                             device=dev)
-            if fr_host is not None:
+            if tier_keep is not None:
                 nf[:kept_count] = torch.as_tensor(fr_host, device=dev)
             else:
                 nf[:front_count] = out["front_rows"][:front_count]
@@ -990,6 +1154,11 @@ class TorchExplorer:
                          f"{distinct} distinct states found, "
                          f"{fcount} states left on queue.")
 
+        if graph is not None:
+            viol = self._check_live(graph, warnings)
+            if viol is not None:
+                return self._mk_result(False, distinct, generated,
+                                       depth - 1, t0, warnings, viol)
         self.log("Model checking completed. No error has been found.")
         self.log(f"{generated} states generated, {distinct} distinct states "
                  f"found, 0 states left on queue.")
@@ -1209,6 +1378,7 @@ class TorchExplorer:
                     "host_seen device modes or the interp for a trace)",
                     "resident mode (W={}): dedup on 128-bit fingerprints; "
                     "collision probability < n^2 * 2^-129".format(self.W)]
+        warnings.extend(self._temporal_warnings())
         warnings.extend(self._symmetry_warnings())
         warnings.extend(self._por_warnings())
 
@@ -1479,45 +1649,148 @@ class TorchExplorer:
         return f(en, aok, ov, fcount, keys, cand, pack_ovf, OV_PACK,
                  inv_ok, explore)
 
+    def _set_const_lanes(self, cvecs, rows_each: int = 1) -> None:
+        """Bind each lifted CONSTANT to a per-row int32 lane where the
+        emitter resolves identifiers (kernel2 reads kc.const_lanes):
+        cvecs [M, n_lift] (numpy or a tensor), each row's values
+        repeated over `rows_each` rows; None clears them.  The
+        counterpart of the reference's tracer install: one member's
+        value repeated over its rows is what vmap over cvec computes.
+        A no-op for engines without lifted constants."""
+        if not self._lift_names:
+            return
+        if cvecs is None:
+            self.kc.const_lanes = {}
+            return
+        from ..compile.lanes import BL
+        cv = torch.as_tensor(cvecs, dtype=torch.int32,
+                             device=self.device).reshape(
+                                 -1, len(self._lift_names))
+        if rows_each != 1:
+            cv = cv.repeat_interleave(rows_each, dim=0)
+        self.kc.const_lanes = {nm: BL(cv[:, i].contiguous())
+                               for i, nm in enumerate(self._lift_names)}
+
+    def _traced_with(self, fn, zero, slot=None):
+        """fn's forced evaluation on the one-row zero block, with a lifted
+        engine's constant lanes installed (bfs._traced_with), so a lifted
+        name used where compilation needs a static value fails here, as
+        the reference's traced build does."""
+        self._set_const_lanes(self._cvec[None])
+        try:
+            return fn(zero) if slot is None else fn(zero, slot)
+        finally:
+            self._set_const_lanes(None)
+
+    def _hstep_cands(self, frontier_p: torch.Tensor, fcounts: List[int],
+                     cvecs: np.ndarray):
+        """The host-seen chunk step up to its epilogue, for B members'
+        chunks stacked in frontier_p [B*CH, PW] (bfs._hstep_core, and
+        its vmap over a leading member axis for batching): unpack (K1),
+        expand every compiled instance over all B*CH rows with each
+        member's lifted constants (cvecs [B, n_lift] int32) as per-row
+        lanes, then per member the keys (K2, fp128) and its
+        pack-overflow flag, and the invariants and constraints over
+        every candidate.  Returns en, aok, ov [B, A, CH], keys
+        [B*A*CH, K], cand [B*A*CH, PW], pack_ovf [B] bool, inv_ok and
+        explore [B*A*CH], candidates member-major (b, a, f)."""
+        A, W, PW = self.A, self.W, self.PW
+        B = len(fcounts)
+        CH = frontier_p.shape[0] // B
+        C = A * CH
+        dev = frontier_p.device
+        frontier = self._unpack(frontier_p)
+        self._set_const_lanes(cvecs, CH)
+        try:
+            en, aok, ov, succ = self._expand(frontier)
+        finally:
+            self._set_const_lanes(None)
+        if B == 1:
+            # the solo step: no host-to-device copy of the count
+            fvalid = (torch.arange(CH, device=dev) < fcounts[0])[None, :]
+        else:
+            fvalid = torch.arange(CH, device=dev)[None, :] < \
+                torch.as_tensor(fcounts, device=dev)[:, None]
+
+        def member_major(x):
+            return x.reshape((A, B, CH) + x.shape[2:]).transpose(0, 1) \
+                .contiguous()
+
+        en, aok, ov = member_major(en), member_major(aok), member_major(ov)
+        cvalid = (en & fvalid[:, None, :]).reshape(B * C)
+        if C == 0:
+            # hybrid with every arm demoted: the device only hashes
+            keys = torch.zeros((0, self.K), dtype=torch.int32, device=dev)
+            cand = torch.zeros((0, PW), dtype=torch.int32, device=dev)
+            pack_ovf = torch.zeros((B,), dtype=torch.bool, device=dev)
+            cand_u = torch.zeros((0, W), dtype=torch.int32, device=dev)
+        else:
+            cand_u = torch.where(cvalid[:, None],
+                                 member_major(succ).reshape(B * C, W),
+                                 torch.full((), int(SENTINEL),
+                                            dtype=torch.int32,
+                                            device=dev))
+            parts = []
+            for b in range(B):
+                # one K2 per member: its pack-overflow flag is its own
+                sl = slice(b * C, (b + 1) * C)
+                self._set_const_lanes(cvecs[b:b + 1], C)
+                try:
+                    parts.append(self._keys_of(cand_u[sl], cvalid[sl]))
+                finally:
+                    self._set_const_lanes(None)
+            if B == 1:
+                keys, cand = parts[0][0], parts[0][1]
+            else:
+                keys = torch.cat([p[0] for p in parts])
+                cand = torch.cat([p[1] for p in parts])
+            pack_ovf = torch.stack([p[2].reshape(()) for p in parts])
+        del succ
+        inv_ok = torch.ones(B * C, dtype=torch.bool, device=dev)
+        explore = torch.ones(B * C, dtype=torch.bool, device=dev)
+        if C:
+            self._set_const_lanes(cvecs, C)
+            try:
+                for _nm, f in self.inv_fns:
+                    inv_ok = inv_ok & f(cand_u)
+                for _nm, f in self.constraint_fns:
+                    explore = explore & f(cand_u)
+            finally:
+                self._set_const_lanes(None)
+        return en, aok, ov, keys, cand, pack_ovf, inv_ok, explore
+
     def _hstep(self, frontier_p: torch.Tensor, fcount: int) -> dict:
         """One chunk of the host-seen step (bfs._hstep_core, the fused
-        path of _get_hstep): unpack (K1), expand every compiled
-        instance, keys (K2, fp128), the invariants and constraints over
+        path of _get_hstep) with this model's lifted-constant vector:
+        K1, the emitter, K2 (fp128), the invariants and constraints over
         every candidate, then the epilogue (K7): verdict scalars and
         the compacted valid candidates.  Returns K7's dict of device
         tensors.  The reference splits the step into arm groups on
         XLA:CPU, whose single fused program compiles superlinearly in
         the instance count; eager torch compiles nothing, so the port
         always runs this fused step (same counts and traces)."""
-        A, W, PW = self.A, self.W, self.PW
-        CH = frontier_p.shape[0]
-        dev = frontier_p.device
-        frontier = self._unpack(frontier_p)
-        en, aok, ov, succ = self._expand(frontier)
-        C = A * CH
-        fvalid = torch.arange(CH, device=dev) < fcount
-        cvalid = (en & fvalid[None, :]).reshape(C)
-        if C == 0:
-            # hybrid with every arm demoted: the device only hashes
-            keys = torch.zeros((0, self.K), dtype=torch.int32, device=dev)
-            cand = torch.zeros((0, PW), dtype=torch.int32, device=dev)
-            pack_ovf = torch.zeros((), dtype=torch.bool, device=dev)
-            cand_u = torch.zeros((0, W), dtype=torch.int32, device=dev)
-        else:
-            cand_u = torch.where(cvalid[:, None], succ.reshape(C, W),
-                                 torch.full((), int(SENTINEL),
-                                            dtype=torch.int32,
-                                            device=dev))
-            keys, cand, pack_ovf = self._keys_of(cand_u, cvalid)
-        del succ
-        inv_ok = torch.ones(C, dtype=torch.bool, device=dev)
-        explore = torch.ones(C, dtype=torch.bool, device=dev)
-        for _nm, f in (self.inv_fns if C else ()):
-            inv_ok = inv_ok & f(cand_u)
-        for _nm, f in (self.constraint_fns if C else ()):
-            explore = explore & f(cand_u)
-        return self._epilogue(en, aok, ov, fcount, keys, cand, pack_ovf,
-                              inv_ok, explore)
+        en, aok, ov, keys, cand, pack_ovf, inv_ok, explore = \
+            self._hstep_cands(frontier_p, [fcount], self._cvec[None])
+        return self._epilogue(en[0], aok[0], ov[0], fcount, keys, cand,
+                              pack_ovf[0], inv_ok, explore)
+
+    def _hstep_np(self, block: np.ndarray, fcount: int) -> dict:
+        return self._hstep(torch.as_tensor(block, device=self.device),
+                           fcount)
+
+    def _hstep_batch(self, frontier_p: torch.Tensor, fcounts: List[int],
+                     cvecs: np.ndarray) -> dict:
+        """B members' chunk steps in one pass (the batch dispatcher's
+        step, backend/batch.py): _hstep_cands over the stacked chunks,
+        then K10, which computes each member's K7 result over its
+        slice.  Returns K10's dict (ops.batch_epilogue)."""
+        en, aok, ov, keys, cand, pack_ovf, inv_ok, explore = \
+            self._hstep_cands(frontier_p, fcounts, cvecs)
+        fc = torch.as_tensor(np.asarray(fcounts, np.int32),
+                             device=frontier_p.device)
+        f = ops.batch_epilogue_twin if self.twins else ops.batch_epilogue
+        return f(en, aok, ov, fc, keys, cand, pack_ovf, OV_PACK, inv_ok,
+                 explore)
 
     def _d2h(self, tensors, n: Optional[int] = None) -> List[np.ndarray]:
         """Host copies of `tensors` (of their first n rows when n is
@@ -1533,6 +1806,7 @@ class TorchExplorer:
         layout = self.layout
         warnings = ["seen-set resident in the native host fingerprint "
                     "store (host_seen); dedup on 128-bit fingerprints"]
+        warnings.extend(self._temporal_warnings())
         warnings.extend(self._symmetry_warnings())
         warnings.extend(self._por_warnings())
         # POR: the ample check probes the native store BEFORE insert via
@@ -1569,12 +1843,21 @@ class TorchExplorer:
         CH = _pow2_at_least(self.chunk, lo=64)
         A, PW = self.A, self.PW
         frontier_np = np.ascontiguousarray(init_packed[explored_init])
+        graph = _LiveGraph(self.labels_flat, self.collect_edges) \
+            if self.live_obligations else None
+        frontier_sids = graph.add_inits(init_packed, explored_init) \
+            if graph is not None else None
         trace_levels = [(np.asarray(init_packed), None, 0)]
         frontier_maps = [np.asarray(explored_init, dtype=np.int64)]
         depth = 0
         self.log(f"Progress({depth}): {generated} generated, "
                  f"{distinct} distinct, {len(frontier_np)} on queue.")
         last_progress = time.time()
+        # cross-model batching: a batch member's chunk step goes through
+        # the shared dispatcher (backend/batch.py) instead of its own —
+        # same arguments, the same dict back
+        hstep = self._hstep_override(CH) \
+            if self._hstep_override is not None else self._hstep_np
         while len(frontier_np) > 0:
             L = len(frontier_np)
             lvl_t0 = time.time()
@@ -1582,14 +1865,14 @@ class TorchExplorer:
             lvl_new_rows: List[np.ndarray] = []
             lvl_new_prov: List[np.ndarray] = []
             lvl_explore: List[np.ndarray] = []
+            lvl_edges: List[Tuple[np.ndarray, np.ndarray]] = []
             lvl_dead = np.zeros(L, bool)  # deferred when fb arms exist
             inv_hit = None
             for base in range(0, L, CH):
                 cn = min(CH, L - base)
                 block = np.full((CH, PW), SENTINEL, np.int32)
                 block[:cn] = frontier_np[base:base + cn]
-                out = self._hstep(torch.as_tensor(block, device=self.device),
-                                  cn)
+                out = hstep(block, cn)
                 (nv, ovc, ab_any, ab_flat, dead_any,
                  dead_f) = (int(x) for x in self._d2h([out["scalars"]])[0])
                 if ovc:
@@ -1659,6 +1942,26 @@ class TorchExplorer:
                     generated += int(kk.sum())
                 else:
                     generated += nv
+                if self._need_edges:
+                    # the chunk's kept candidate edges (bfs.py:3606-
+                    # 3631): K7 compacted the valid candidates in
+                    # candidate order with their explore bits
+                    ek = got["explore"]
+                    e_rows, e_idx = got["rows"][ek], idx[ek]
+                    if self.refiners:
+                        rviol = self._refine_edges(block, e_rows, e_idx,
+                                                   CH)
+                        if rviol is not None:
+                            a, f, sst, rc = rviol
+                            trace = self._trace_to(trace_levels,
+                                                   frontier_maps,
+                                                   depth, base + f)
+                            return self._mk_result(
+                                False, distinct, generated, depth, t0,
+                                warnings,
+                                self._refine_violation(rc, sst, a, trace))
+                    if graph is not None and graph.collect_edges:
+                        lvl_edges.append((e_rows, base + e_idx % CH))
                 new_mask = store.insert(got["fps"])
                 new_idx = idx[new_mask]
                 if not len(new_idx):
@@ -1710,8 +2013,9 @@ class TorchExplorer:
                 fb_enabled = np.zeros(L, bool)
                 gen_inc, dist_inc, fbv = self._fb_expand_level(
                     frontier_np, L, store, lvl_new_rows, lvl_new_prov,
-                    lvl_explore, fb_enabled, trace_levels, frontier_maps,
-                    depth, t0, warnings, distinct, generated)
+                    lvl_explore, lvl_edges, fb_enabled, trace_levels,
+                    frontier_maps, depth, t0, warnings, distinct,
+                    generated)
                 if fbv is not None:
                     return fbv
                 generated += gen_inc
@@ -1768,6 +2072,13 @@ class TorchExplorer:
                     Violation("invariant", nm, trace))
 
             sel = np.nonzero(explore_mask)[0]
+            if graph is not None:
+                new_sids = graph.add_level(new_rows_np[sel],
+                                           new_prov_np[sel], L,
+                                           frontier_sids)
+                for erows, eparents in lvl_edges:
+                    graph.add_edges(erows, eparents, frontier_sids)
+                frontier_sids = new_sids
             if self.store_trace:
                 frontier_maps.append(sel.astype(np.int64))
             tel.level(depth, frontier=L, generated=generated - lvl_gen0,
@@ -1791,6 +2102,11 @@ class TorchExplorer:
                          f"{distinct} distinct, {len(frontier_np)} on "
                          f"queue.")
 
+        if graph is not None:
+            viol = self._check_live(graph, warnings)
+            if viol is not None:
+                return self._mk_result(False, distinct, generated,
+                                       depth - 1, t0, warnings, viol)
         self.log("Model checking completed. No error has been found.")
         self.log(f"{generated} states generated, {distinct} distinct "
                  f"states found, 0 states left on queue.")
@@ -1798,15 +2114,16 @@ class TorchExplorer:
                                warnings)
 
     def _fb_expand_level(self, frontier_np, L, store, lvl_new_rows,
-                         lvl_new_prov, lvl_explore, fb_enabled,
+                         lvl_new_prov, lvl_explore, lvl_edges, fb_enabled,
                          trace_levels, frontier_maps, depth, t0, warnings,
                          distinct, generated):
         """Hybrid execution, action side: enumerate the fallback arms
         with the EXACT interpreter over this level's decoded frontier
         states, encode the successors, key them (K2), dedup them through
         the native store, and splice rows/provenance into the level
-        streams so traces see one uniform level.  Fallback arm j uses
-        provenance action index A + j.
+        streams so traces, refinement and the liveness behavior graph
+        see one uniform level.  Fallback arm j uses provenance action
+        index A + j.
 
         Returns (generated_inc, distinct_inc, violation CheckResult |
         None); mutates lvl_* and fb_enabled in place."""
@@ -1881,6 +2198,13 @@ class TorchExplorer:
                                 (sst, self.labels_flat[self.A + j]))
                             return gen_inc, 0, _mk(Violation(
                                 "invariant", inm, trace))
+                    for rc in self.refiners:
+                        if not rc.check_edge(pst, sst):
+                            trace = self._trace_to(
+                                trace_levels, frontier_maps, depth, f)
+                            return gen_inc, 0, _mk(
+                                self._refine_violation(
+                                    rc, sst, self.A + j, trace))
                     cand_rows.append(row)
                     cand_prov.append((self.A + j) * L + f)
 
@@ -1898,6 +2222,11 @@ class TorchExplorer:
                 "error", "capacity overflow", [],
                 f"a fallback successor escaped its packed lane range "
                 f"({self._pack_ovf_msg()})"))
+        if self.collect_edges:
+            # every explored successor edge (revisits included) feeds the
+            # behavior graph, as the device candidate stream does
+            lvl_edges.append(
+                (packed_mat, np.asarray([p % L for p in cand_prov])))
         new_mask = store.insert(keys[:, 1:])
         new_idx = np.nonzero(new_mask)[0]
         dist_inc = len(new_idx)
@@ -2053,6 +2382,172 @@ class TorchExplorer:
             r = self._run_host_seen()
         return r
 
+    # ---- temporal and refinement PROPERTYs (host side) ----
+
+    def _temporal_warnings(self) -> List[str]:
+        out = []
+        if self.live_unsupported:
+            out.append(
+                "temporal properties NOT checked (unsupported form): "
+                + ", ".join(self.live_unsupported))
+        for rc in self.refiners:
+            if rc.liveness_skipped:
+                out.append(
+                    f"property {rc.name}: refinement checked stepwise; "
+                    f"its fairness conjuncts are NOT checked")
+        return out
+
+    def _check_live(self, graph, warnings) -> Optional[Violation]:
+        """Run the temporal obligations over the accumulated behavior
+        graph (end of a completed search)."""
+        if not self.live_obligations:
+            return None
+        from ..engine.liveness import LivenessChecker
+        states = [self.layout.decode_packed(r) for r in graph.rows]
+        lc = LivenessChecker(self.model, states, graph.edges,
+                             graph.parents, graph.labels)
+        bad, live_warns = lc.check(self.live_obligations)
+        warnings.extend(live_warns)
+        if bad is None:
+            return None
+        pname, trace, msg = bad
+        return Violation("property", pname, trace, msg)
+
+    def _refine_init(self, init_rows, explored_init):
+        """check_init on kept init states; (rc_name, state) | None."""
+        if not self.refiners:
+            return None
+        for i in explored_init:
+            st = self.layout.decode(init_rows[i])
+            for rc in self.refiners:
+                if not rc.check_init(st):
+                    return rc.name, st
+        return None
+
+    def _refine_edges(self, frontier_rows, rows, idx, FC):
+        """Stepwise refinement over a step's kept candidate edges, in
+        candidate order: rows [n, PW] packed, idx [n] their candidate
+        indices a*FC + f (bfs._refine_edges over cvalid & explore).
+        Returns (action_idx, frontier_idx, succ_state, checker) or None.
+        Duplicate (parent, succ) pairs are checked once per run."""
+        if not self.refiners or not len(idx):
+            return None
+        parents: Dict[int, Any] = {}
+        if len(self._ref_pair_cache) > (1 << 20):
+            self._ref_pair_cache.clear()
+        for i in range(len(idx)):
+            c = int(idx[i])
+            f = c % FC
+            a = c // FC
+            key = (frontier_rows[f].tobytes(), rows[i].tobytes())
+            if key in self._ref_pair_cache:
+                continue
+            self._ref_pair_cache.add(key)
+            pst = parents.get(f)
+            if pst is None:
+                pst = self.layout.decode_packed(frontier_rows[f])
+                parents[f] = pst
+            sst = self.layout.decode_packed(rows[i])
+            for rc in self.refiners:
+                if not rc.check_edge(pst, sst):
+                    return a, f, sst, rc
+        return None
+
+    def _refine_msg(self, rc) -> str:
+        msg = (f"step is not a [{rc.name}-Next]_v step of the refined "
+               f"specification")
+        if rc.last_error:
+            msg += f"; while evaluating the property: {rc.last_error}"
+        return msg
+
+    def _refine_violation(self, rc, sst, a, trace):
+        trace = [x for x in trace if x[0] is not None]
+        trace.append((sst, self.labels_flat[a]))
+        return Violation("property", rc.name, trace, self._refine_msg(rc))
+
+    # ---- lifted constants and follower clones (cross-model batching) ----
+
+    def batch_block_reason(self) -> Optional[str]:
+        """None when this engine can serve as a cross-model batch donor
+        or member; otherwise the blocker (the batch planner falls back
+        to solo runs and reports it).  The reference's arm-split clause
+        (JAXMC_FUSED_MAX_INSTANCES on XLA:CPU) has no counterpart: the
+        port always runs the fused step."""
+        if not self.host_seen:
+            return "host_seen mode required"
+        if self.hybrid:
+            return ("hybrid execution (interp-demoted units): "
+                    + "; ".join(
+                        [f"arm {a.label or 'Next'}" for a, _ in
+                         self.fb_arms]
+                        + [f"invariant {nm}" for nm, _, _ in
+                           self.fb_invs]
+                        + [f"constraint {nm}" for nm, _, _ in
+                           self.fb_cons]))
+        if self.refiners:
+            return "refinement PROPERTYs (stepwise host edge checks)"
+        if self.live_obligations:
+            return "temporal PROPERTYs (behavior graph)"
+        if self._demotable:
+            # a fired compile-recovery demotion restarts via
+            # _demote_arms, which mutates the (donor-shared) compiled
+            # arm set mid-cohort — refuse up front
+            return ("compile-recovery demotions possible (arms "
+                    + ", ".join(self.arms[i].label or "Next"
+                                for i in self._demotable)
+                    + "): a runtime demotion restart would mutate the "
+                      "shared batch program")
+        if self.seen_cap is not None:
+            return "hierarchical seen-set spill (per-member tiers)"
+        return None
+
+    # what a follower shares with its donor: the layout and every
+    # compiled unit (and the device they live on)
+    _DONOR_SHARED = (
+        "device", "twins", "bounds", "layout", "kc", "plan", "pt",
+        "compiled", "actions", "arms", "_ca_arm", "fb_arms", "fb_invs",
+        "fb_cons", "inv_fns", "constraint_fns", "canon", "_sym_fallback",
+        "sym_identity", "view_fn", "view_width", "refiners", "unrefined",
+        "live_obligations", "live_unsupported", "collect_edges",
+        "_need_edges", "hybrid", "_demotable", "labels_flat", "A", "W",
+        "PW", "K", "fp_mode", "key_width", "chunk", "sample_cfg",
+        "host_seen", "seen_mode_req", "_lift_names")
+
+    def _clone_from_donor(self, donor: "TorchExplorer", model: Model,
+                          log, max_states, store_trace,
+                          progress_every) -> None:
+        """Follower construction: reuse the donor's layout and compiled
+        units wholesale — no sampling, no bounds fixpoint, no builds —
+        binding only this member's model, init states and run control.
+        The caller (backend/batch.py) has proven layout compatibility
+        and that the donor is batchable."""
+        reason = donor.batch_block_reason()
+        if reason is not None:
+            raise ModeError(f"donor engine is not batchable: {reason}")
+        for attr in self._DONOR_SHARED:
+            setattr(self, attr, getattr(donor, attr))
+        self.model = model
+        self.log = log if log is not None else obs.Logger(quiet=True)
+        self.max_states = max_states
+        self.store_trace = store_trace
+        self.progress_every = progress_every
+        self.resident = False
+        self._res_caps_hint = None
+        self.extra_samples = []
+        # a relayout restart rebuilds layout and units per member, which
+        # would diverge from the shared batch program
+        self.relayouts_left = 0
+        self._last_frontier_np = None
+        self._ref_pair_cache = set()
+        self.seen_cap = None
+        self.spill_dir = None
+        self.host_tier_keys = None
+        self._tiers = None
+        self._cvec = np.asarray([int(model.defs[n])
+                                 for n in self._lift_names], np.int32)
+        self.init_states = enumerate_init(model.init, model.ctx(),
+                                          model.vars)
+
     # ---- SYMMETRY and POR disclosure ----
 
     def _symmetry_warnings(self) -> List[str]:
@@ -2177,6 +2672,10 @@ class TorchExplorer:
         occ = getattr(self, "_fp_occupancy", None)
         if occ is not None:
             tel.gauge("fingerprint.occupancy", occ)
+        if truncated and self.live_obligations:
+            warnings.append("temporal properties NOT checked: the "
+                            "search was truncated (behavior graph "
+                            "incomplete)")
         # the tier-hierarchy summary when the run spilled
         tiers_stats = None
         if self._tiers is not None and self._tiers.active:

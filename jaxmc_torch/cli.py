@@ -1,9 +1,12 @@
 """Command line of the port: `python -m jaxmc_torch check SPEC`.
 
-    python -m jaxmc_torch check SPEC [--cfg F] [--device cuda|cpu]
-        [--seen auto|exact|fingerprint] [--max-states N] [--no-trace]
-        [--no-deadlock] [--por] [--host-seen | --resident] [--chunk N]
-        [--seen-cap ROWS [--seen-spill DIR]]
+    python -m jaxmc_torch check SPEC [--cfg F] [-I DIR ...]
+        [--device cuda|cpu] [--seen auto|exact|fingerprint]
+        [--max-states N] [--no-trace] [--no-deadlock] [--por]
+        [--host-seen | --resident] [--chunk N]
+        [--seen-cap ROWS [--seen-spill DIR]] [--sample BFS WALKS DEPTH]
+        [--seq-cap N] [--grow-cap N] [--kv-cap N] [--quiet]
+        [--progress-every S]
 
 Prints the same TLC-style progress and final lines as `jaxmc check
 --backend jax`.  The search runs on the CUDA card unless --device cpu
@@ -13,13 +16,19 @@ native host fingerprint store, the mode that also runs hybrid specs
 keeps the whole level loop on the device and reads one summary per
 level (no traces).  --seen-cap caps the device seen table of the level
 and resident engines: past it the table spills to host-RAM and disk
-runs (JAXMC_TIER_HOST_KEYS bounds the host tier).  Exit codes: 0 no
-error found, 1 a violation, 2 a refused mode or an uncompilable spec.
+runs (JAXMC_TIER_HOST_KEYS bounds the host tier).  Temporal and
+refinement PROPERTYs are checked on the level and host-seen engines.  A
+cfg that names neither SPECIFICATION nor INIT runs TLC's
+No-Behavior-Spec mode: the module's ASSUMEs are evaluated and nothing
+is searched.  Exit codes: 0 no error found, 1 a violation, 2 a refused
+mode, an uncompilable spec or any other error (one line on stderr,
+`error: <Type>: <message>`, as the reference prints it).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 from typing import List, Optional
@@ -48,19 +57,26 @@ def refuse_unported(args) -> None:
 
 def cmd_check(args) -> int:
     from .backend.bfs import TorchExplorer
-    from .compile.vspec import CompileError, ModeError
+    from .compile.vspec import Bounds, CompileError, ModeError
     from .engine.explore import format_trace
     from .obs import Logger
-    from .session import load_model
+    from .session import CheckSession, SessionConfig
 
     t0 = time.time()
-    log = Logger(quiet=False)
+    log = Logger(quiet=args.quiet)
     try:
         refuse_unported(args)
-        model = load_model(args.spec, args.cfg,
-                           no_deadlock=args.no_deadlock)
-        eng = TorchExplorer(model, log=log, max_states=args.max_states,
+        sess = CheckSession(SessionConfig.from_args(args))
+        if sess.parse() == "assumes":
+            return sess.run_assumes()
+        eng = TorchExplorer(sess.model, log=log,
+                            max_states=args.max_states,
                             store_trace=not args.no_trace,
+                            progress_every=args.progress_every,
+                            bounds=Bounds(seq_cap=args.seq_cap,
+                                          grow_cap=args.grow_cap,
+                                          kv_cap=args.kv_cap),
+                            sample_cfg=tuple(args.sample),
                             seen_mode=args.seen, device=args.device,
                             por=args.por, host_seen=args.host_seen,
                             resident=args.resident, chunk=args.chunk,
@@ -93,11 +109,15 @@ def cmd_check(args) -> int:
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from .compile.vspec import Bounds
     p = argparse.ArgumentParser(prog="python -m jaxmc_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     c = sub.add_parser("check", help="model-check SPEC")
     c.add_argument("spec")
     c.add_argument("--cfg", default=None)
+    c.add_argument("-I", "--include", action="append", default=[],
+                   help="extra module search directories (MC shims "
+                        "extending reference specs)")
     c.add_argument("--device", default=None, choices=("cuda", "cpu"),
                    help="where the search runs (default: the CUDA card)")
     c.add_argument("--seen", default="auto",
@@ -127,6 +147,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="disk-tier directory for spilled seen-set runs "
                         "(env: JAXMC_SPILL_DIR; default a temp dir). "
                         "Host-RAM tier budget: JAXMC_TIER_HOST_KEYS keys")
+    c.add_argument("--sample", type=int, nargs=3, default=[800, 40, 60],
+                   metavar=("BFS", "WALKS", "DEPTH"),
+                   help="layout-sampling effort (BFS-prefix states, random "
+                        "walks, walk depth)")
+    c.add_argument("--seq-cap", type=int, default=Bounds.seq_cap,
+                   help="sequence-length capacity floor")
+    c.add_argument("--grow-cap", type=int, default=Bounds.grow_cap,
+                   help="growing-set capacity floor")
+    c.add_argument("--kv-cap", type=int, default=Bounds.kv_cap,
+                   help="message-table domain capacity floor")
+    c.add_argument("--quiet", action="store_true")
+    c.add_argument("--progress-every", type=float, default=30.0)
     # accepted so that a `jaxmc check` command line is refused by name
     c.add_argument("--checkpoint", default=None, help=argparse.SUPPRESS)
     c.add_argument("--resume", default=None, help=argparse.SUPPRESS)
@@ -135,16 +167,16 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    from .compile.vspec import CompileError
-    from .sem.values import EvalError
     args = build_parser().parse_args(argv)
     try:
         return args.fn(args)
-    except (EvalError, CompileError, OSError) as e:
+    except FileNotFoundError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    except RuntimeError as e:
-        print(f"error: {e}", file=sys.stderr)
+    except Exception as e:
+        print(f"error: {type(e).__name__}: {e}", file=sys.stderr)
+        if os.environ.get("JAXMC_DEBUG"):
+            raise
         return 2
 
 

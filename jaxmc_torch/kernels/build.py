@@ -24,7 +24,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
 BUILD_ROOT = os.path.join(HERE, "_build")
 SOURCES = ("unpack", "keys", "probe", "merge", "canon", "por", "hstep",
-           "resident")
+           "resident", "batch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -53,6 +53,10 @@ ARGTYPES = {
     "jmc_res_compact_scatter": [_P] * 4 + [_I, _I, _I, _I, _P],
     "jmc_res_fold_copy": [_P] * 5 + [_I, _I64, _I, _I, _P],
     "jmc_res_fold_scalar": [_P] * 6 + [_I64, _I, _I, _I64, _I, _I, _I, _P],
+    "jmc_batch_threads": [],
+    "jmc_batch_count": [_P] * 9 + [_I, _I, _I, _P],
+    "jmc_batch_scan": [_P] * 8 + [_I, _I, _I, _P],
+    "jmc_batch_scatter": [_P] * 12 + [_I, _I, _I, _I, _P],
 }
 # return types other than the cudaError_t (an int) of a launch
 RESTYPE = {"jmc_canon_threads": _I64}
@@ -66,7 +70,9 @@ ENTRY = {"unpack": ["jmc_unpack_rows"], "keys": ["jmc_keys_of"],
                    "jmc_hstep_scatter"],
          "resident": ["jmc_res_threads", "jmc_res_compact_count",
                       "jmc_res_compact_scan", "jmc_res_compact_scatter",
-                      "jmc_res_fold_copy", "jmc_res_fold_scalar"]}
+                      "jmc_res_fold_copy", "jmc_res_fold_scalar"],
+         "batch": ["jmc_batch_threads", "jmc_batch_count", "jmc_batch_scan",
+                   "jmc_batch_scatter"]}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

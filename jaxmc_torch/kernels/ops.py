@@ -32,10 +32,15 @@ too, which is how the kernels are compared with them on the card.
                     in _run_host_seen
   resident_compact K8 backend/bfs.py _get_resident_run: a chunk's
                     verdict partials and the stable-sort compaction of
-                    its valid grid (capped at VC), and the compaction of
-                    the level's explore mask (capped at FCap)
+                    its valid grid (capped at VC), the compaction of
+                    the level's explore mask (capped at FCap), and the
+                    level engine's edge stream (site `edges`: the kept
+                    candidates of bfs's need_edges step, uncapped)
   resident_fold  K9 backend/bfs.py _get_resident_run: one chunk folded
                     into the level's device carry, guarded by its status
+  batch_epilogue K10 backend/batch.py BatchDispatcher (vmap of
+                    _hstep_core): K7's epilogue for B batch members in
+                    one set of launches
 """
 
 from __future__ import annotations
@@ -60,7 +65,8 @@ LAUNCHES: Dict[str, int] = {"unpack_rows": 0, "keys_of": 0,
                             "por_mask": 0, "hstep_epilogue": 0,
                             "resident_compact": 0,
                             "resident_compact_explore": 0,
-                            "resident_fold": 0}
+                            "resident_compact_edges": 0,
+                            "resident_fold": 0, "batch_epilogue": 0}
 # arms the device POR filter takes (por.cu kMaxWords * 64)
 POR_MAX_ARMS = 1024
 
@@ -973,3 +979,121 @@ def resident_fold(carry: torch.Tensor, bad_row: torch.Tensor,
         ctypes.c_int(int(bool(check_deadlock))), ctypes.c_int(int(ov_pack)),
         _stream())
     _launch("resident_fold", rc)
+
+
+# ---------------------------------------------------------------------------
+# K10 batch_epilogue
+# ---------------------------------------------------------------------------
+
+def batch_epilogue_twin(en: torch.Tensor, aok: torch.Tensor,
+                        ov: torch.Tensor, fcount: torch.Tensor,
+                        keys: torch.Tensor, cand: torch.Tensor,
+                        pack_ovf: torch.Tensor, ov_pack: int,
+                        inv_ok: torch.Tensor, explore: torch.Tensor) -> dict:
+    """B members' hstep_epilogue_twin, one per member: over en, aok, ov
+    [B, A, CH], fcount [B] int32, keys [B*A*CH, 5], cand [B*A*CH, PW],
+    pack_ovf [B] bool and inv_ok, explore [B*A*CH] (member-major
+    candidates), returns
+
+      scalars  int64 [B, 6]: each member's HSTEP_SCALARS;
+      dead     [B, CH] bool;
+      offsets  int64 [B + 1]: member b's compacted candidates are rows
+               offsets[b] .. offsets[b+1] of
+      idx      the member's own flat indices a*CH+f, ascending, with
+               `fps`, `rows`, `inv_ok` and `explore` as in K7.
+
+    Rows past offsets[B] are unspecified (here there are none)."""
+    B, A, CH = en.shape
+    C = A * CH
+    fc = [int(x) for x in fcount.tolist()]
+    outs = [hstep_epilogue_twin(
+        en[b], aok[b], ov[b], fc[b], keys[b * C:(b + 1) * C],
+        cand[b * C:(b + 1) * C], pack_ovf[b], ov_pack,
+        inv_ok[b * C:(b + 1) * C], explore[b * C:(b + 1) * C])
+        for b in range(B)]
+    nv = [int(o["scalars"][0]) for o in outs]
+    offsets = torch.tensor(np.concatenate([[0], np.cumsum(nv)]),
+                           dtype=torch.int64, device=en.device)
+    out = dict(scalars=torch.stack([o["scalars"] for o in outs]),
+               dead=torch.stack([o["dead"] for o in outs]),
+               offsets=offsets)
+    for k in ("idx", "fps", "rows", "inv_ok", "explore"):
+        out[k] = torch.cat([o[k] for o in outs])
+    return out
+
+
+def batch_epilogue(en: torch.Tensor, aok: torch.Tensor, ov: torch.Tensor,
+                   fcount: torch.Tensor, keys: torch.Tensor,
+                   cand: torch.Tensor, pack_ovf: torch.Tensor, ov_pack: int,
+                   inv_ok: torch.Tensor, explore: torch.Tensor) -> dict:
+    """K10: batch_epilogue_twin's function in three launches for the
+    whole cohort (per-(member, block) counts and reductions, one scan
+    over all of them, the scatter), with the member as the grid's y
+    dimension.  Nothing is read back to the host here."""
+    _check(en, "batch_epilogue.en", 3, torch.bool)
+    _check(aok, "batch_epilogue.aok", 3, torch.bool)
+    _check(ov, "batch_epilogue.ov", 3)
+    _check(fcount, "batch_epilogue.fcount", 1)
+    _check(keys, "batch_epilogue.keys", 2)
+    _check(cand, "batch_epilogue.cand", 2)
+    _check(pack_ovf, "batch_epilogue.pack_ovf", 1, torch.bool)
+    B, A, CH = en.shape
+    C = A * CH
+    if aok.shape != en.shape or ov.shape != en.shape or \
+            fcount.shape[0] != B or pack_ovf.shape[0] != B or \
+            keys.shape != (B * C, 5) or cand.shape[0] != B * C:
+        raise ValueError(f"batch_epilogue: en {tuple(en.shape)}, aok "
+                         f"{tuple(aok.shape)}, ov {tuple(ov.shape)}, "
+                         f"fcount {tuple(fcount.shape)}, pack_ovf "
+                         f"{tuple(pack_ovf.shape)}, keys "
+                         f"{tuple(keys.shape)}, cand {tuple(cand.shape)}")
+    for nm, x in (("inv_ok", inv_ok), ("explore", explore)):
+        _check(x, "batch_epilogue." + nm, 1, torch.bool)
+        if x.shape[0] != B * C:
+            raise ValueError(f"batch_epilogue: {nm} {tuple(x.shape)} "
+                             f"for {B * C} candidates")
+    if B < 1 or B > 65535:
+        raise ValueError(f"batch_epilogue: {B} members (1..65535)")
+    if max(B * C, CH) >= 2**31 - 256:
+        raise ValueError(f"batch_epilogue: {B * C} candidates, the "
+                         f"kernel's indices are int32")
+    if en.device.type == "cpu":
+        return batch_epilogue_twin(en, aok, ov, fcount, keys, cand,
+                                   pack_ovf, ov_pack, inv_ok, explore)
+    _same_device("batch_epilogue", en, aok, ov, fcount, keys, cand,
+                 pack_ovf, inv_ok, explore)
+    from . import build
+    lib = build.library("batch")
+    dev = en.device
+    PW = cand.shape[1]
+    threads = int(lib.jmc_batch_threads())
+    nb = max(1, -(-max(C, CH) // threads))
+    part = torch.empty((5, B * nb), dtype=torch.int32, device=dev)
+    scalars = torch.empty((B, 6), dtype=torch.int64, device=dev)
+    offsets = torch.empty((B + 1,), dtype=torch.int64, device=dev)
+    dead = torch.empty((B, CH), dtype=torch.bool, device=dev)
+    idx = torch.empty((B * C,), dtype=torch.int32, device=dev)
+    fps = torch.empty((B * C, 4), dtype=torch.int32, device=dev)
+    rows = torch.empty((B * C, PW), dtype=torch.int32, device=dev)
+    inv_out = torch.empty((B * C,), dtype=torch.bool, device=dev)
+    exp_out = torch.empty((B * C,), dtype=torch.bool, device=dev)
+    rc = lib.jmc_batch_count(
+        _ptr(en), _ptr(aok), _ptr(ov), _ptr(fcount), _ptr(dead),
+        _ptr(part[0]), _ptr(part[1]), _ptr(part[2]), _ptr(part[3]),
+        ctypes.c_int(B), ctypes.c_int(A), ctypes.c_int(CH), _stream())
+    _launch("batch_epilogue", rc)
+    rc = lib.jmc_batch_scan(
+        _ptr(part[0]), _ptr(part[1]), _ptr(part[2]), _ptr(part[3]),
+        _ptr(pack_ovf), _ptr(part[4]), _ptr(scalars), _ptr(offsets),
+        ctypes.c_int(B), ctypes.c_int(nb), ctypes.c_int(int(ov_pack)),
+        _stream())
+    _launch("batch_epilogue", rc)
+    if C:
+        rc = lib.jmc_batch_scatter(
+            _ptr(en), _ptr(fcount), _ptr(keys), _ptr(cand), _ptr(inv_ok),
+            _ptr(explore), _ptr(part[4]), _ptr(idx), _ptr(fps), _ptr(rows),
+            _ptr(inv_out), _ptr(exp_out), ctypes.c_int(B), ctypes.c_int(A),
+            ctypes.c_int(CH), ctypes.c_int(PW), _stream())
+        _launch("batch_epilogue", rc)
+    return dict(scalars=scalars, dead=dead, offsets=offsets, idx=idx,
+                fps=fps, rows=rows, inv_ok=inv_out, explore=exp_out)

@@ -11,6 +11,7 @@ keeps their values in memory, where a caller reads them after a run
 from __future__ import annotations
 
 import sys
+import threading
 import time
 from contextlib import contextmanager
 from typing import Any, Dict, List, Optional
@@ -74,10 +75,24 @@ class Telemetry:
 
 
 _CURRENT = Telemetry()
+# a thread's own sink (a batch member's, backend/batch.py), else _CURRENT
+_LOCAL = threading.local()
 
 
 def current() -> Telemetry:
-    return _CURRENT
+    t = getattr(_LOCAL, "tel", None)
+    return t if t is not None else _CURRENT
+
+
+@contextmanager
+def use_local(tel: Telemetry):
+    """Route this thread's telemetry to `tel` for the block."""
+    prev = getattr(_LOCAL, "tel", None)
+    _LOCAL.tel = tel
+    try:
+        yield tel
+    finally:
+        _LOCAL.tel = prev
 
 
 def reset() -> Telemetry:

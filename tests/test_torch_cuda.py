@@ -1,8 +1,9 @@
-"""The seven CUDA kernels of the torch port against their plain PyTorch
-twins, on the card, at the shapes the engines give them, the level
-engine on the card against the corpus pins, with SYMMETRY, VIEW and
---por among them, and the host-seen engine on the card against the
-same run on the CPU.
+"""The CUDA kernels of the torch port (K1-K10) against their plain
+PyTorch twins, on the card, at the shapes the engines give them, the
+level engine on the card against the corpus pins, with SYMMETRY, VIEW
+and --por among them, the host-seen engine on the card against the
+same run on the CPU, PROPERTYs on both engines and a batch cohort on
+the card against the CPU.
 
 Needs a CUDA card and nvcc; elsewhere every test skips with the reason.
 Run on the card with:  python -m pytest -m gpu tests/test_torch_cuda.py
@@ -552,3 +553,110 @@ def test_resident_level_does_not_synchronise(card):
         finally:
             torch.cuda.set_sync_debug_mode("default")
         assert r.ok and NoSync.levels > 5
+
+
+@pytest.mark.parametrize("B,A,CH", [(1, 13, 4096), (3, 13, 65536),
+                                    (4, 33, 1024), (5, 1, 64), (2, 0, 256)])
+@pytest.mark.parametrize("p", [0.0, 0.4, 1.0])
+def test_batch_epilogue_matches_twin(card, B, A, CH, p):
+    """K10 on random masks: ragged fcounts, one idle lane, members'
+    pack-overflow flags, A not a multiple of 32, and no instances."""
+    from jaxmc_torch.compile.kernel2 import OV_PACK
+    from jaxmc_torch.kernels import ops
+    rng = np.random.default_rng(B * 1000 + A * 7 + CH)
+    C = A * CH
+    fc = rng.integers(1, CH + 1, B).astype(np.int32)
+    fc[rng.integers(0, B)] = 0
+    fc[0] = CH
+    t = lambda x: torch.as_tensor(x, device=card)  # noqa: E731
+    args = (t(rng.random((B, A, CH)) < p),
+            t(rng.random((B, A, CH)) > 1e-4),
+            t(np.where(rng.random((B, A, CH)) < 1e-5,
+                       rng.integers(1, 3, (B, A, CH)), 0).astype(np.int32)),
+            t(fc), t(rng.integers(-2**31, 2**31, (B * C, 5)).astype(np.int32)),
+            t(rng.integers(-2**31, 2**31, (B * C, 3)).astype(np.int32)),
+            t(rng.random(B) < 0.5), OV_PACK, t(rng.random(B * C) < 0.9),
+            t(rng.random(B * C) < 0.7))
+    k = ops.batch_epilogue(*args)
+    w = ops.batch_epilogue_twin(*args)
+    torch.cuda.synchronize()
+    for name in ("scalars", "dead", "offsets"):
+        _eq(k[name], w[name])
+    n = int(w["offsets"][-1])
+    for name in ("idx", "fps", "rows", "inv_ok", "explore"):
+        _eq(k[name][:n], w[name][:n])
+
+
+@pytest.mark.parametrize("prop", ["monotone", "frozen", "live", "nolive"])
+@pytest.mark.parametrize("host_seen", [False, True])
+def test_properties_on_the_card_equal_the_cpu(card, prop, host_seen,
+                                              tmp_path):
+    """transfer_props at MaxMoney 3 on the card (K8's edge site on the
+    level engine, K7 under host-seen) and on the CPU: verdict, counts,
+    property name, trace and warnings equal."""
+    from jaxmc_torch.backend.bfs import TorchExplorer
+    from jaxmc_torch.engine.explore import format_trace
+    from jaxmc_torch.kernels import ops
+    from jaxmc_torch.session import load_model
+    fix = os.path.join(ROOT, "jaxmc_torch", "fixtures")
+    cfg = str(tmp_path / f"tp3_{prop}.cfg")
+    with open(os.path.join(fix, f"transfer_props_{prop}.cfg")) as fh:
+        text = fh.read().replace("MaxMoney = 12", "MaxMoney = 3")
+    with open(cfg, "w") as fh:
+        fh.write(text)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        m = load_model(os.path.join(fix, "transfer_props.tla"), cfg, False,
+                       [SPECS])
+        ops.reset_launches()
+        r = TorchExplorer(m, device=dev, host_seen=host_seen,
+                          chunk=64).run()
+        if dev == "cuda":
+            site = "hstep_epilogue" if host_seen else \
+                "resident_compact_edges"
+            assert ops.LAUNCHES[site] > 0, ops.LAUNCHES
+        res[dev] = (r.ok, r.generated, r.distinct, r.diameter, r.warnings,
+                    r.violation and (r.violation.name,
+                                     format_trace(r.violation)))
+    assert res["cuda"] == res["cpu"]
+
+
+@pytest.mark.parametrize("cohort", ["batchtoy", "msgstoy"])
+def test_batch_cohort_on_the_card_equals_the_cpu(card, cohort, tmp_path):
+    """The batchtoy cohort, and msgstoy at Cap 1-3 and T 2 (its Tick arm
+    has a dynamic \\E slot axis, sized at build time), through K10 on
+    the card and on the CPU: each member's result equal; K10 launched,
+    K7 not."""
+    from jaxmc_torch.backend.batch import BatchCheckEngine
+    from jaxmc_torch.engine.explore import format_trace
+    from jaxmc_torch.kernels import ops
+    from jaxmc_torch.session import SessionConfig
+    if cohort == "batchtoy":
+        spec = os.path.join(SPECS, "batchtoy.tla")
+        cfgs = [os.path.join(SPECS, f"batchtoy_{v}.cfg")
+                for v in ("a", "b", "c", "d", "bad")]
+    else:
+        spec = os.path.join(SPECS, "msgstoy.tla")
+        cfgs = []
+        for cap in (1, 2, 3):
+            with open(os.path.join(ROOT, "jaxmc_torch", "fixtures",
+                                   f"msgstoy_batch_cap{cap}.cfg")) as fh:
+                text = fh.read().replace("T = 6", "T = 2")
+            (tmp_path / f"c{cap}.cfg").write_text(text)
+            cfgs.append(str(tmp_path / f"c{cap}.cfg"))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        be = BatchCheckEngine([SessionConfig(
+            spec=spec, cfg=c, host_seen=True, device=dev)
+            for c in cfgs]).build()
+        ops.reset_launches()
+        members = be.run()
+        if dev == "cuda":
+            assert ops.LAUNCHES["batch_epilogue"] > 0, ops.LAUNCHES
+            assert ops.LAUNCHES["hstep_epilogue"] == 0
+        assert be.dispatcher.max_width == len(cfgs)
+        res[dev] = [(m.error, m.result.ok, m.result.distinct,
+                     m.result.generated, m.result.violation
+                     and format_trace(m.result.violation))
+                    for m in members]
+    assert res["cuda"] == res["cpu"]

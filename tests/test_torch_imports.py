@@ -82,17 +82,28 @@ Live == <>(x = 2)
 
 @pytest.mark.parametrize("why,item", [("PROPERTY", "A.7")])
 def test_unported_modes_are_refused(why, item, tmp_path):
-    """cfg SYMMETRY and VIEW run on the port (tests/test_torch_symmetry.py);
-    a temporal PROPERTY is still refused, naming its ROADMAP item."""
+    """A temporal PROPERTY was refused until ROADMAP A.7 ported it
+    (tests/test_torch_properties.py); now no engine refuses it.  A form
+    outside the liveness checker's fragment (here <>P) runs with the
+    reference's warning, on the level and host-seen engines alike."""
+    from jaxmc.backend.bfs import TpuExplorer
+    from jaxmc.session import load_model as jload
     from jaxmc_torch.backend.bfs import TorchExplorer
-    from jaxmc_torch.compile.vspec import ModeError
     from jaxmc_torch.session import load_model
     (tmp_path / "livetoy.tla").write_text(LIVE_TLA)
     (tmp_path / "livetoy.cfg").write_text(
-        "SPECIFICATION Spec\nPROPERTY Live\n")
-    model = load_model(str(tmp_path / "livetoy.tla"))
-    with pytest.raises(ModeError, match=f"{why}.*ROADMAP {item}"):
-        TorchExplorer(model, device="cpu")
+        f"SPECIFICATION Spec\n{why} Live\n")
+    spec = str(tmp_path / "livetoy.tla")
+    for hs in (False, True):
+        rt = TorchExplorer(load_model(spec), device="cpu",
+                           host_seen=hs).run()
+        rj = TpuExplorer(jload(spec, None, False), host_seen=hs).run()
+        assert f"ROADMAP {item}" not in " ".join(rt.warnings)
+        assert rt.warnings == rj.warnings
+        assert "temporal properties NOT checked (unsupported form): " \
+               "Live" in rt.warnings
+        assert (rt.ok, rt.distinct, rt.generated) == \
+            (rj.ok, rj.distinct, rj.generated)
 
 
 @pytest.mark.parametrize("flag,item", [
@@ -106,3 +117,24 @@ def test_cli_refuses_unported_options_by_item(flag, item, capsys):
     spec = os.path.join(ROOT, "specs", "constoy.tla")
     assert main(["check", spec, "--device", "cpu"] + flag) == 2
     assert f"ROADMAP {item}" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("mod", ["jaxmc_torch.backend.batch",
+                                 "jaxmc_torch.batchbench",
+                                 "jaxmc_torch.session",
+                                 "jaxmc_torch.cli"])
+def test_new_modules_import_without_jax(mod):
+    """The batching and session modules import with jax and jaxmc made
+    unimportable (a subprocess with both blocked)."""
+    import subprocess
+    import sys
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'jaxmc'):\n"
+            "    sys.modules[m] = None\n"
+            f"import {mod}\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'jaxmc') and sys.modules[m] is not None]\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
