@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Smoke run of the torch port on one CUDA card: builds the ten
+"""Smoke run of the torch port on one CUDA card: builds the eleven
 hand-written kernels and the native fingerprint store, holds each
 kernel against its plain PyTorch twin at the shapes the engines give
 it, times both, and checks models end to end through the port's entry
 points: the level engine, the chunked host-seen engine, the resident
 engine, the out-of-core seen tiers, temporal and refinement PROPERTYs,
-and cross-model batching.
+cross-model batching, checkpoints, resume and drain, and the full-sort
+level step.
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
@@ -81,8 +82,8 @@ Phases (any failure raises; the exit code is then not 0):
                --chunk 65536, on the kernels, on the twins and on the
                CPU, in a pool of worker processes (the host checkers
                are single-threaded Python), but the level engine's
-               runs on the kernels alone after the pool; card runs
-               equal the CPU run; K8's edge site launched on the level
+               runs on the kernels, the live cfg's excepted, alone
+               after the pool; card runs equal the CPU run; K8's edge site launched on the level
                engine; wall, edges streamed and the host checker's
                share; then K8's
                edge site against its twin and torch.nonzero at the
@@ -99,6 +100,25 @@ Phases (any failure raises; the exit code is then not 0):
                the busiest dispatch (row "batch_epilogue@msgstoy3");
                the batchtoy_{a,b,c,d,bad} cohort on the card equal to
                the CPU
+ 19 durability transfer_scaled with a checkpoint at every level, killed
+               by JAXMC_FAULTS=run_kill:level=5 in a CLI subprocess, then
+               resumed on the card and, from its `.host` snapshot, in
+               ParallelExplorer: the pins; the snapshot's wall per
+               state.  The 4-process model with --no-trace on the level,
+               host-seen and resident engines (chunk 65,536): truncated
+               at half its distinct states and resumed, and a CLI
+               subprocess drained by SIGTERM (exit 143, the resume
+               hint) and resumed, each to phase 7's pins; the resident
+               engine's completed checkpoint replayed with no kernel
+               launch; each engine's checkpoint write wall and file size
+ 20 full sort  the 4-process model with JAXMC_LEVEL_RANKMERGE=0 on the
+               kernels (K11 launched, K4 not) and on the twins: phase
+               7's counts, wall, peak memory; at its widest level K11
+               against its twin, bit-exact, timed by events and device
+               time with L2 written over before each call, beside its
+               byte bound and torch.nonzero + index_select, and the
+               whole full-sort step against the rank step (row
+               "fullsort_dedup@4p")
 The last three lines are the `nvidia-smi` name and power limit, the
 kernel table as JSON and {"ok": true, "device": {...}}.
 
@@ -192,6 +212,14 @@ CAPS_BATCH = (1, 2, 3)
 CFG_BATCH = [os.path.join(FIXTURES, f"msgstoy_batch_cap{c}.cfg")
              for c in CAPS_BATCH]
 PINS_BATCH = [(c + 1) ** 10 + (c + 1) ** 9 for c in CAPS_BATCH]
+# phase 19: each engine's keywords and CLI flags at the phases' chunks,
+# and the gitignored directory its checkpoints go to (removed after)
+ENGINE_KW = {"level": {}, "host_seen": dict(host_seen=True, chunk=CHUNK_HS),
+             "resident": dict(resident=True, chunk=CHUNK_RES)}
+ENGINE_FLAGS = {"level": [],
+                "host_seen": ["--host-seen", "--chunk", str(CHUNK_HS)],
+                "resident": ["--resident", "--chunk", str(CHUNK_RES)]}
+DURABLE = os.path.join(ROOT, "jaxmc_torch", "kernels", "_build", "durable")
 
 
 def log(msg: str) -> None:
@@ -1387,12 +1415,14 @@ def _props_job(prop, host_seen, variant):
 def phase_props(tag="17 properties"):
     """The PROPERTY runs in a pool of worker processes (spawned; each
     starts its own CUDA context; they share the card and the host's
-    cores), then each cfg's level-engine run on the kernels alone in
-    this process, so that its wall and its host checker's share are
-    the run's own; then K8's edge site timed here."""
+    cores), then the level-engine run on the kernels of each cfg but
+    the live one alone in this process, so that its wall and its host
+    checker's share are the run's own (the live cfg's, 40-50 s alone,
+    runs in the pool to keep the script inside its time); then K8's
+    edge site timed here."""
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
-    alone = [(p, False, "kernels") for p in PROP_ORDER]
+    alone = [(p, False, "kernels") for p in PROP_ORDER if p != "live"]
     jobs = [(p, hs, v) for p in PROP_ORDER for hs in (False, True)
             for v in ("kernels", "twins", "cpu") if (p, hs, v) not in alone]
     t0 = time.time()
@@ -1691,6 +1721,344 @@ def check_batch_epilogue(be, launches, tag):
              f"{dev_ms:.4f} ms, warm {warm_ms:.4f} ms]")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: checkpoints, resume and drain
+# ---------------------------------------------------------------------------
+
+def durable_engine(spec, cfg, engine, stats, **kw):
+    """A TorchExplorer on `engine` ("level", "host_seen" or "resident",
+    at the phases' chunks) that records each checkpoint's write wall
+    and file size, and each `.host` snapshot's wall and states, in
+    `stats`."""
+    from jaxmc_torch.backend.bfs import TorchExplorer
+    from jaxmc_torch.session import load_model
+
+    class Timed(TorchExplorer):
+        def _write_ck(self, mode, **state):
+            t0 = time.time()
+            super()._write_ck(mode, **state)
+            stats.setdefault("ck", []).append(
+                (time.time() - t0, os.path.getsize(self.checkpoint_path)))
+
+        def _write_host_snapshot(self, trace_levels, frontier_maps, graph,
+                                 depth, generated):
+            t0 = time.time()
+            super()._write_host_snapshot(trace_levels, frontier_maps, graph,
+                                         depth, generated)
+            n = sum(len(m) for m in frontier_maps) if frontier_maps else 0
+            stats.setdefault("snap", []).append((time.time() - t0, n))
+
+    kw = dict(ENGINE_KW[engine], **kw)
+    kw.setdefault("progress_every", 1e9)
+    return Timed(load_model(os.path.join(SPECS, spec), cfg), device=DEVICE,
+                 **kw)
+
+
+def _cli(args, env=None, **kw):
+    return subprocess.Popen(
+        [sys.executable, "-m", "jaxmc_torch", "check"] + args, cwd=ROOT,
+        env=dict(os.environ, **(env or {})), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, **kw)
+
+
+def _ck_note(stats):
+    cks = stats.get("ck", [])
+    if not cks:
+        return "no checkpoint written"
+    walls = [w for w, _ in cks]
+    return (f"{len(cks)} checkpoint writes, wall max {max(walls):.3f}s "
+            f"mean {sum(walls) / len(walls):.3f}s, last file "
+            f"{cks[-1][1] / 2**20:.1f} MiB (largest "
+            f"{max(s for _, s in cks) / 2**20:.1f} MiB)")
+
+
+def phase_durability(pins_4p, tag="19 durability"):
+    """transfer_scaled traced and killed by run_kill at level 5, resumed
+    on the card and, from its `.host` snapshot, in ParallelExplorer; then
+    the 4-process model (--no-trace) on each engine: a truncation at
+    half its distinct states resumed, a SIGTERM drain of a CLI
+    subprocess (exit 143) resumed, and on the resident engine a
+    completed checkpoint replayed with no kernel launch."""
+    import shutil
+    import signal
+    from jaxmc_torch import drain
+    from jaxmc_torch.engine.ckpt import load_checkpoint
+    from jaxmc_torch.engine.parallel import ParallelExplorer
+    from jaxmc_torch.kernels import ops
+    from jaxmc_torch.session import load_model
+    if os.path.exists(DURABLE):
+        shutil.rmtree(DURABLE)
+    os.makedirs(DURABLE)
+    try:
+        # transfer_scaled, traced, a checkpoint at every level boundary,
+        # SIGKILLed entering level 5
+        ck = os.path.join(DURABLE, "ts.ck")
+        fdir = os.path.join(DURABLE, "faults")
+        os.makedirs(fdir)
+        t0 = time.time()
+        p = _cli([os.path.join(SPECS, "transfer_scaled.tla"), "--checkpoint",
+                  ck, "--checkpoint-every", "0", "--quiet"],
+                 env={"JAXMC_FAULTS": "run_kill:level=5",
+                      "JAXMC_FAULTS_STATE": fdir})
+        out, err = p.communicate(timeout=600)
+        depth = load_checkpoint(ck, kind="device")[1]["depth"]
+        log(f"[{tag}] transfer_scaled run_kill:level=5: exit "
+            f"{p.returncode} after {time.time() - t0:.1f}s; last "
+            f"checkpoint at depth {depth}; {os.path.getsize(ck)} bytes, "
+            f".host {os.path.getsize(ck + '.host')} bytes")
+        if p.returncode != -signal.SIGKILL or depth != 5:
+            raise AssertionError(f"{tag}: run_kill gave exit "
+                                 f"{p.returncode}, depth {depth}: {err}")
+        t0 = time.time()
+        r = durable_engine("transfer_scaled.tla", None, "level", {},
+                           resume_from=ck).run()
+        torch.cuda.synchronize()
+        log(f"[{tag}] resumed on the card: distinct {r.distinct} generated "
+            f"{r.generated} diameter {r.diameter} in "
+            f"{time.time() - t0:.3f}s")
+        if (r.distinct, r.generated, r.diameter) != PINS or not r.ok:
+            raise AssertionError(f"{tag}: card resume != {PINS}")
+        # one `.host` snapshot, timed: a drain at level 7 writes the
+        # checkpoint and the snapshot once
+        stats = {}
+
+        def drain_at_7(line):
+            if line.startswith("Progress(7)"):
+                drain.request("phase 19")
+        try:
+            r = durable_engine("transfer_scaled.tla", None, "level", stats,
+                               checkpoint_path=ck + ".7", progress_every=0.0,
+                               log=drain_at_7).run()
+        finally:
+            drain.clear()
+        (w, n), = stats["snap"]
+        log(f"[{tag}] transfer_scaled drained at level 7 "
+            f"(drained={r.drained}): {_ck_note(stats)}; host snapshot of "
+            f"{n} states in {w:.3f}s, {w / n * 1e6:.1f} us a state")
+        if not r.drained:
+            raise AssertionError(f"{tag}: the level-7 drain did not stop "
+                                 f"the run")
+        t0 = time.time()
+        r = ParallelExplorer(load_model(os.path.join(
+            SPECS, "transfer_scaled.tla")), workers=PROP_WORKERS,
+            resume_from=ck + ".host").run()
+        log(f"[{tag}] .host snapshot resumed in ParallelExplorer "
+            f"({PROP_WORKERS} workers): distinct {r.distinct} generated "
+            f"{r.generated} diameter {r.diameter} in "
+            f"{time.time() - t0:.3f}s")
+        if (r.distinct, r.generated, r.diameter) != PINS or not r.ok:
+            raise AssertionError(f"{tag}: host snapshot resume != {PINS}")
+
+        half = pins_4p[0] // 2
+        for engine in ("level", "host_seen", "resident"):
+            ck = os.path.join(DURABLE, f"{engine}.ck")
+            stats = {}
+            t0 = time.time()
+            r1 = durable_engine(
+                "transfer_scaled.tla", CFG_4P, engine, stats,
+                store_trace=False, max_states=half, checkpoint_path=ck,
+                checkpoint_every=0.0).run()
+            torch.cuda.synchronize()
+            w1 = time.time() - t0
+            fin = ck + ".final"
+            t0 = time.time()
+            r2 = durable_engine(
+                "transfer_scaled.tla", CFG_4P, engine, {},
+                store_trace=False, resume_from=ck, checkpoint_path=fin,
+                final_checkpoint=True).run()
+            torch.cuda.synchronize()
+            w2 = time.time() - t0
+            got = (r2.distinct, r2.generated, r2.diameter)
+            log(f"[{tag}] 4 processes {engine}: truncated at "
+                f"{r1.distinct} distinct in {w1:.3f}s ({_ck_note(stats)}); "
+                f"resumed to {got} in {w2:.3f}s")
+            if not r1.truncated or got != pins_4p or not r2.ok:
+                raise AssertionError(f"{tag}: {engine} resume {got} != "
+                                     f"{pins_4p}")
+            # SIGTERM a CLI run at a level boundary: exit 143, resume hint
+            ck2 = os.path.join(DURABLE, f"{engine}.drain.ck")
+            t0 = time.time()
+            p = _cli([os.path.join(SPECS, "transfer_scaled.tla"), "--cfg",
+                      CFG_4P, "--no-trace", "--checkpoint", ck2,
+                      "--progress-every", "0"] + ENGINE_FLAGS[engine])
+            try:
+                for line in p.stdout:
+                    if line.startswith("Progress(3)"):
+                        p.send_signal(signal.SIGTERM)
+                        break
+                out, err = p.communicate(timeout=600)
+            finally:
+                if p.poll() is None:
+                    p.kill()
+            hint = f"resume with --resume {ck2}"
+            log(f"[{tag}] 4 processes {engine}: SIGTERM at Progress(3): "
+                f"exit {p.returncode} after {time.time() - t0:.1f}s; "
+                f"{err.strip().splitlines()[-1] if err.strip() else ''}")
+            if p.returncode != 143 or hint not in err:
+                raise AssertionError(f"{tag}: {engine} drain exit "
+                                     f"{p.returncode}: {err}")
+            stats = {}
+            r3 = durable_engine("transfer_scaled.tla", CFG_4P, engine,
+                                stats, store_trace=False,
+                                resume_from=ck2).run()
+            got = (r3.distinct, r3.generated, r3.diameter)
+            log(f"[{tag}] 4 processes {engine}: drained run resumed to "
+                f"{got}")
+            if got != pins_4p or not r3.ok:
+                raise AssertionError(f"{tag}: {engine} drain resume {got}")
+            if engine == "resident":
+                eng = durable_engine("transfer_scaled.tla", CFG_4P, engine,
+                                     {}, store_trace=False,
+                                     resume_from=fin)
+                torch.cuda.synchronize()
+                ops.reset_launches()
+                r4 = eng.run()
+                torch.cuda.synchronize()
+                n = sum(ops.LAUNCHES.values())
+                log(f"[{tag}] 4 processes resident: completed checkpoint "
+                    f"replayed to {(r4.distinct, r4.generated, r4.diameter)}"
+                    f" with {n} kernel launches")
+                if n or (r4.distinct, r4.generated, r4.diameter) != pins_4p:
+                    raise AssertionError(f"{tag}: completed resident "
+                                         f"replay launched {n} kernels")
+    finally:
+        shutil.rmtree(DURABLE, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the full-sort level step (JAXMC_LEVEL_RANKMERGE=0)
+# ---------------------------------------------------------------------------
+
+def phase_full_sort(pins_4p, tag="20 full sort"):
+    """The 4-process model with JAXMC_LEVEL_RANKMERGE=0 on the kernels
+    (K11 launched, K4 not) and on the twins, counts equal to phase 7's;
+    then, at its widest level, K11 against its twin, timed with L2
+    written over before each call, beside its byte bound and the
+    library sequence, and the whole full-sort step against the rank
+    step.  Returns K11's table row."""
+    from jaxmc_torch.backend.bfs import TorchExplorer
+    from jaxmc_torch.kernels import ops
+    from jaxmc_torch.session import load_model
+    got = {}
+
+    class Capture(TorchExplorer):
+        def level_step(self, seen, seen_count, frontier_p, fcount):
+            if fcount > got.get("step_n", -1):
+                got["step_n"] = fcount
+                got["step"] = (seen.clone(), seen_count, frontier_p.clone(),
+                               fcount)
+            return super().level_step(seen, seen_count, frontier_p, fcount)
+
+    os.environ["JAXMC_LEVEL_RANKMERGE"] = "0"
+    try:
+        res = {}
+        for kind, twins in (("kernels", False), ("twins", True)):
+            cls = TorchExplorer if twins else Capture
+            eng, r, wall, counts, peak = run_counted(
+                lambda cls=cls, twins=twins: cls(
+                    load_model(os.path.join(SPECS, "transfer_scaled.tla"),
+                               CFG_4P), device=DEVICE, store_trace=False,
+                    twins=twins, progress_every=1e9))
+            res[kind] = (r.ok, r.distinct, r.generated, r.diameter)
+            log(f"[{tag}] {kind}: ok={r.ok} distinct {r.distinct} "
+                f"generated {r.generated} diameter {r.diameter}; wall "
+                f"{wall:.3f}s, {r.generated / wall:.0f} generated states/s; "
+                f"peak {peak / 2**30:.2f} GiB; launches {counts}")
+            if (r.distinct, r.generated, r.diameter) != pins_4p or not r.ok:
+                raise AssertionError(f"{tag}: {kind} counts != {pins_4p}")
+            if twins and any(counts.values()):
+                raise AssertionError(f"{tag}: twin run launched kernels")
+            if not twins:
+                if counts["fullsort_dedup"] <= 0 or counts["rank_merge"]:
+                    raise AssertionError(f"{tag}: K11 not launched or K4 "
+                                         f"launched: {counts}")
+                launches, keng = counts["fullsort_dedup"], eng
+        # the widest level: the step's merge inputs rebuilt as _full_sort
+        # builds them
+        seen, seen_count, frontier_p, fcount = got["step"]
+        out = keng.level_step(seen, seen_count, frontier_p, fcount)
+        step_full = cuda_time(lambda: keng.level_step(
+            seen, seen_count, frontier_p, fcount), reps=3, warm=1)
+        os.environ["JAXMC_LEVEL_RANKMERGE"] = "1"
+        out_r = keng.level_step(seen, seen_count, frontier_p, fcount)
+        step_rank = cuda_time(lambda: keng.level_step(
+            seen, seen_count, frontier_p, fcount), reps=3, warm=1)
+        if _max_abs(out["scalars"], out_r["scalars"]):
+            raise AssertionError(f"{tag}: full-sort step scalars differ "
+                                 f"from the rank step's")
+        del out, out_r
+        frontier = keng._unpack(frontier_p)
+        en, aok, ov, succ = keng._expand(frontier)
+        FC = frontier_p.shape[0]
+        valid = (en & (torch.arange(FC, device=en.device) <
+                       fcount)[None, :]).reshape(-1)
+        C = valid.shape[0]
+        cand_u = torch.where(valid[:, None], succ.reshape(C, keng.W),
+                             torch.full_like(succ.reshape(C, keng.W),
+                                             2**31 - 1))
+        keys, _cand, _ovf = keng._keys_of(cand_u, valid)
+        del en, aok, ov, succ, cand_u, _cand
+        SC, K = seen.shape
+        allk = torch.cat([seen, keys])
+        allk[seen_count:SC, 0] = 2**31 - 1
+        perm = ops.lsd_sort(allk)
+        skeys = allk[perm].contiguous()
+        perm = perm.to(torch.int32)
+        sflag = (perm >= SC).to(torch.int32)
+        del allk, keys
+        N = SC + C
+        args = (skeys, sflag, perm, SC, C)
+        k = ops.fullsort_dedup(*args)
+        t = ops.fullsort_dedup_twin(*args)
+        torch.cuda.synchronize()
+        n_new, n_keep = int(t[2][0]), int(t[2][1])
+        err = max(_max_abs(k[2], t[2]), _max_abs(k[0][:n_new], t[0][:n_new]),
+                  _max_abs(k[1][:n_keep], t[1][:n_keep]))
+        # the library sequence: torch.nonzero of both masks, two
+        # index_select (the masks, a few elementwise ops, are made
+        # outside the timed calls)
+        rvalid = skeys[:, 0] == 0
+        neq = torch.ones(N, dtype=torch.bool, device=skeys.device)
+        neq[1:] = (skeys[1:] != skeys[:-1]).any(dim=1)
+        new = (sflag != 0) & rvalid & neq
+        keep = ((sflag == 0) & rvalid) | new
+
+        def library():
+            inew = torch.nonzero(new).flatten()
+            ikeep = torch.nonzero(keep).flatten()
+            return (perm.index_select(0, inew) - SC,
+                    skeys.index_select(0, ikeep))
+        lib = library()
+        if _max_abs(lib[0], k[0][:n_new]) or \
+                _max_abs(lib[1], k[1][:n_keep]):
+            raise AssertionError("nonzero + index_select yardstick "
+                                 "disagrees")
+        dev_ms = device_ms(lambda: ops.fullsort_dedup(*args), "fullsort_",
+                           flush=True)
+        peak = torch.cuda.max_memory_allocated()
+        row = _row(
+            tag, "fullsort_dedup@4p", "jaxmc_torch/kernels/csrc/fullsort.cu",
+            "jaxmc/backend/bfs.py:1820", launches, err,
+            cuda_time(lambda: ops.fullsort_dedup(*args), reps=5,
+                      flush=True),
+            cuda_time(lambda: ops.fullsort_dedup_twin(*args), reps=2,
+                      warm=1, flush=True),
+            # every sorted key row and flag read once; perm read and the
+            # index written for the new rows; the kept rows written; the
+            # counts written
+            N * (K + 1) * 4 + n_new * 8 + n_keep * K * 4 + 16,
+            N * (2 * K + 4),
+            library_ms=cuda_time(library, reps=5, flush=True),
+            note=f" [N={N} SC={SC} C={C} K={K} seen_count={seen_count} "
+                 f"new={n_new} kept={n_keep}; 3 launches; L2 flushed "
+                 f"before each call; device time {dev_ms:.4f} ms; whole "
+                 f"step full sort {step_full:.2f} ms, rank "
+                 f"{step_rank:.2f} ms; peak {peak / 2**30:.2f} GiB]")
+        return row
+    finally:
+        os.environ.pop("JAXMC_LEVEL_RANKMERGE", None)
+
+
 def main() -> int:
     t_start = time.time()
     name, count, smi = phase_device()
@@ -1766,6 +2134,8 @@ def main() -> int:
     phase_tiers(counts_4p)
     table.append(phase_props())
     table.append(phase_batch())
+    phase_durability(counts_4p)
+    table.append(phase_full_sort(counts_4p))
     log(f"[done] {time.time() - t_start:.1f}s")
     print(f"{smi}")
     print(json.dumps({"kernels": table}))

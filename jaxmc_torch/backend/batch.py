@@ -27,8 +27,10 @@ layout-compatible jobs (the port of jaxmc/backend/batch.py).
 
 Each member's host loop IS the solo engine's loop and K10's slice of a
 member equals K7's result on it, so per-job counts, traces and verdicts
-equal solo runs.  Checkpoints and resume are not ported yet (ROADMAP
-A.15): a cohort that asks for them is refused.
+equal solo runs.  Each member checkpoints and resumes as a solo
+host-seen run does (its own `checkpoint`, `checkpoint_every`, `resume`,
+`final_checkpoint`); a member whose checkpoint cannot seed this
+cohort's merged layout runs fresh (_validate_resumes).
 """
 
 from __future__ import annotations
@@ -208,6 +210,7 @@ class BatchMember:
     error: Optional[BaseException] = None
     tag: Optional[str] = None
     warnings: List[str] = field(default_factory=list)
+    resumed: bool = False  # engine restored from its checkpoint
 
 
 # engine-relevant option surface every member must share (per-model
@@ -247,10 +250,6 @@ class BatchCheckEngine:
         from ..session import load_model
         t0 = time.time()
         c0 = self.cfgs[0]
-        for c in self.cfgs:
-            if c.checkpoint or c.resume:
-                raise ModeError("--checkpoint/--resume are not ported to "
-                                "the torch engine yet (ROADMAP A.15)")
         for c in self.cfgs[1:]:
             for f in _SHARED_FIELDS + ("device",):
                 if getattr(c, f) != getattr(c0, f):
@@ -322,7 +321,11 @@ class BatchCheckEngine:
                     extra_samples=extra,
                     max_states=c0.max_states,
                     relayouts_left=0, device=c0.device,
-                    twins=self.twins, lift_consts=lift)
+                    twins=self.twins, lift_consts=lift,
+                    checkpoint_path=c0.checkpoint,
+                    checkpoint_every=c0.checkpoint_every,
+                    resume_from=c0.resume,
+                    final_checkpoint=c0.final_checkpoint)
             except (CompileError, ModeError) as ex:
                 raise BatchIncompatible(
                     f"lifted-constant compile failed: {ex}")
@@ -331,12 +334,17 @@ class BatchCheckEngine:
             raise BatchIncompatible(f"donor engine not batchable: "
                                     f"{reason}")
         self.members[0].engine = donor
-        for mem in self.members[1:]:
+        for mem, c in zip(self.members[1:], self.cfgs[1:]):
             mem.engine = TorchExplorer(
                 mem.model, donor=donor, log=self.log,
                 max_states=c0.max_states,
                 store_trace=not c0.no_trace,
-                progress_every=c0.progress_every)
+                progress_every=c0.progress_every,
+                checkpoint_path=c.checkpoint,
+                checkpoint_every=c.checkpoint_every,
+                resume_from=c.resume,
+                final_checkpoint=c.final_checkpoint)
+        self._validate_resumes()
         cvecs = np.stack([mem.engine._cvec for mem in self.members]) \
             if lift else np.zeros((len(self.members), 0), np.int32)
         self.dispatcher = BatchDispatcher(donor, cvecs, tel=self.tel)
@@ -347,6 +355,40 @@ class BatchCheckEngine:
         self.tel.gauge("batch.lifted_consts", list(lift))
         self.tel.gauge("batch.plan", donor.plan.batch_descriptor())
         return self
+
+    def _validate_resumes(self) -> None:
+        """The cohort's resume guard (reference batch.py:368-395): a
+        member whose checkpoint cannot seed THIS cohort's merged layout
+        (a solo checkpoint, another cohort's packing, a damaged file)
+        runs fresh instead of failing, with one log line and the
+        batch.resume_refused counter."""
+        from ..engine.ckpt import CkptError, load_checkpoint
+        for mem in self.members:
+            eng = mem.engine
+            path = getattr(eng, "resume_from", None)
+            if not path:
+                continue
+            why = None
+            try:
+                _, ck = load_checkpoint(path, kind="device")
+                if ck.get("module") != mem.model.module.name or \
+                        ck.get("vars") != list(mem.model.vars):
+                    why = "checkpoint is for a different model"
+                elif ck.get("mode") != "host_seen":
+                    why = (f"checkpoint was written by the "
+                           f"{ck.get('mode')!r} device mode")
+                elif ck.get("layout_sig") != eng._layout_sig():
+                    why = ("lane layout differs from the checkpoint's "
+                           "(solo or different-cohort checkpoint)")
+            except (CkptError, OSError, ValueError) as ex:
+                why = str(ex)
+            if why is None:
+                mem.resumed = True
+                continue
+            eng.resume_from = None
+            self.tel.counter("batch.resume_refused")
+            self.log(f"batch member {mem.tag or '?'}: refusing "
+                     f"checkpoint {path} ({why}); running fresh")
 
     # ---- run -----------------------------------------------------------
     def run(self) -> List[BatchMember]:

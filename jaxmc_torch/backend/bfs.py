@@ -62,6 +62,14 @@ past it the sorted table spills to host-RAM and disk runs
 (backend/tiers.py) and each level's new rows are probed against them
 before they are counted or explored.
 
+Every engine checkpoints at level boundaries (checkpoint_path,
+checkpoint_every, resume_from, final_checkpoint; the file is
+engine/ckpt.py's container, and the level and host-seen engines also
+write the interpreter-format `<checkpoint>.host` snapshot) and polls
+drain.py's request there.  JAXMC_LEVEL_RANKMERGE=0 replaces steps 5-7
+with the full sort: one stable sort of seen table and candidates, then
+K11 fullsort_dedup (CUDA).
+
 Modes this port does not run raise ModeError with the ROADMAP item
 that ports them.
 """
@@ -248,7 +256,11 @@ class TorchExplorer:
                  resident: bool = False,
                  res_caps: Optional[Dict[str, int]] = None,
                  lift_consts: Optional[Tuple[str, ...]] = None,
-                 donor: Optional["TorchExplorer"] = None):
+                 donor: Optional["TorchExplorer"] = None,
+                 checkpoint_path: Optional[str] = None,
+                 checkpoint_every: float = 600.0,
+                 resume_from: Optional[str] = None,
+                 final_checkpoint: bool = False):
         # cross-model batching: `lift_consts` compiles the named
         # CONSTANTs as per-row inputs of the emitter instead of baked
         # scalars, so one engine serves every model that differs only in
@@ -256,6 +268,14 @@ class TorchExplorer:
         # donor's layout and compiled units while keeping its own model,
         # init states and seen store (backend/batch.py)
         self._hstep_override: Optional[Callable] = None
+        # checkpoints (engine/ckpt.py's JMCKPT1 container) are written
+        # between levels, so a resume always starts at a level boundary;
+        # final_checkpoint also checkpoints a COMPLETED run (an empty
+        # frontier over the whole seen set), which a resume replays
+        self.checkpoint_path = checkpoint_path
+        self.checkpoint_every = checkpoint_every
+        self.resume_from = resume_from
+        self.final_checkpoint = bool(final_checkpoint)
         # device POR: the plan (instance -> arm map, por-safe arms) is
         # resolved once by _por_plan(), which names the refusal when the
         # reduction cannot run
@@ -656,6 +676,31 @@ class TorchExplorer:
         f = ops.rank_merge_twin if self.twins else ops.rank_merge
         return f(seen, seen_count, keys)
 
+    def _full_sort(self, seen, seen_count: int, keys):
+        """The full-sort merge (bfs.py:1820-1851, JAXMC_LEVEL_RANKMERGE=0):
+        a stable sort of the whole seen table and the candidate keys,
+        then K11 flags the first candidate of each run of equal valid
+        keys and compacts the new candidates' indices and the merged
+        table.  The flag, the reference's last sort key, is the
+        concatenation order itself (seen rows first), so the stable
+        K-word sort gives its permutation.  The rows past the live
+        prefix are marked invalid first: K11 leaves them unwritten (the
+        reference carries its duplicate keys there into the next sort,
+        where they are kept again and only inflate seen_count).
+        Returns the dict _rank_merge returns."""
+        SC, K = seen.shape
+        C = keys.shape[0]
+        allk = torch.cat([seen, keys])
+        allk[seen_count:SC, 0] = int(SENTINEL)
+        perm = ops.lsd_sort(allk)
+        skeys = allk[perm].contiguous()
+        perm = perm.to(torch.int32)
+        sflag = (perm >= SC).to(torch.int32)
+        f = ops.fullsort_dedup_twin if self.twins else ops.fullsort_dedup
+        new_cidx, seen2, counts = f(skeys, sflag, perm, SC, C)
+        return dict(new_count=counts[0], nk_sidx=new_cidx, seen2=seen2,
+                    seen_count2=counts[1])
+
     def _host_keys(self, rows_np: np.ndarray):
         """(keys, packed, pack_ovf) over unpacked numpy rows — the init
         boundary path.  numpy in, numpy out."""
@@ -745,8 +790,13 @@ class TorchExplorer:
         # O(new): sort only the C candidate keys, dedup them against the
         # sorted seen prefix, scatter the new keys at their ranks.
         # nk_sidx is each new key's original candidate index in
-        # key-sorted order (stable ties keep the first occurrence)
-        rm = self._rank_merge(seen, seen_count, ckeys)
+        # key-sorted order (stable ties keep the first occurrence).
+        # JAXMC_LEVEL_RANKMERGE=0 full-sorts seen and candidates instead
+        # (the reference's parity oracle): the same outputs
+        if os.environ.get("JAXMC_LEVEL_RANKMERGE", "").strip() == "0":
+            rm = self._full_sort(seen, seen_count, ckeys)
+        else:
+            rm = self._rank_merge(seen, seen_count, ckeys)
         new_count = rm["new_count"]
         safe_cidx = rm["nk_sidx"].clamp(0, max(C - 1, 0)).to(torch.int64)
         new_rows = cand[safe_cidx]                      # packed
@@ -922,6 +972,7 @@ class TorchExplorer:
             return self._run_resident()
         if self.host_seen:
             return self._run_hybrid()
+        from .. import faults
         t0 = time.time()
         tel = obs.current()
         dev = self.device
@@ -974,11 +1025,52 @@ class TorchExplorer:
         frontier_maps: List[np.ndarray] = [np.asarray(explored_init,
                                                       dtype=np.int64)]
         depth = 0
+        if self.resume_from:
+            ck = self._load_ck("level")
+            (distinct, generated, depth, tl, fm, graph,
+             fsids) = self._restore_ck_state(ck, graph)
+            if self.store_trace:
+                trace_levels, frontier_maps = tl, fm
+            if graph is not None:
+                frontier_sids = fsids
+            cs, fr = ck["seen"], ck["frontier"]
+            SC = _pow2_at_least(len(cs), SC)
+            seen_np = np.full((SC, K), SENTINEL, np.int32)
+            seen_np[:len(cs)] = cs
+            seen = torch.as_tensor(seen_np, device=dev)
+            seen_count = len(cs)
+            FC = _pow2_at_least(max(len(fr), 1), FC)
+            fr_np = np.full((FC, PW), SENTINEL, np.int32)
+            fr_np[:len(fr)] = fr
+            frontier = torch.as_tensor(fr_np, device=dev)
+            fcount = len(fr)
+            del seen_np, fr_np
+
+        def level_ck(front_np):
+            self._write_ck(
+                "level", seen=seen[:seen_count].cpu().numpy(),
+                frontier=front_np,
+                **self._ck_state_kwargs(distinct, generated, depth,
+                                        trace_levels, frontier_maps,
+                                        graph, frontier_sids))
+
         self.log(f"Progress({depth}): {generated} states generated, "
                  f"{distinct} distinct states found, "
                  f"{fcount} states left on queue.")
-        last_progress = time.time()
+        last_progress = last_ck = time.time()
         while fcount > 0:
+            # chaos sites: a crash, or a terminal device failure,
+            # entering a level; then the drain poll
+            faults.kill_self("run_kill", level=depth, engine="level")
+            faults.inject("device_run_fail", level=depth)
+            if self._drain_requested(warnings, "level"):
+                if self.checkpoint_path:
+                    level_ck(frontier[:fcount].cpu().numpy())
+                    self._write_host_snapshot(trace_levels, frontier_maps,
+                                              graph, depth, generated)
+                return self._mk_result(True, distinct, generated, depth,
+                                       t0, warnings, None,
+                                       truncated=True, drained=True)
             lvl_t0 = time.time()
             C = self.A * FC
             if seen_count + C > SC:
@@ -1148,6 +1240,12 @@ class TorchExplorer:
             del out
 
             now = time.time()
+            if self.checkpoint_path and \
+                    now - last_ck >= self.checkpoint_every:
+                last_ck = now
+                level_ck(frontier[:fcount].cpu().numpy())
+                self._write_host_snapshot(trace_levels, frontier_maps,
+                                          graph, depth, generated)
             if now - last_progress >= self.progress_every:
                 last_progress = now
                 self.log(f"Progress({depth}): {generated} states generated, "
@@ -1164,8 +1262,218 @@ class TorchExplorer:
                  f"found, 0 states left on queue.")
         self.log(f"The depth of the complete state graph search is "
                  f"{depth}.")
+        if self.checkpoint_path and self.final_checkpoint:
+            # a COMPLETED-run checkpoint: an empty frontier over the
+            # whole seen table; resuming it replays the stored totals
+            level_ck(np.zeros((0, PW), np.int32))
         return self._mk_result(True, distinct, generated, depth - 1, t0,
                                warnings)
+
+    # ---- checkpoints, resume and drain (bfs.py:2740-2946, :4508-4525) --
+    #
+    # The level and host-seen engines checkpoint between levels, the
+    # resident engine between level programs, so a checkpoint is always a
+    # level boundary and a resumed run's totals equal the uninterrupted
+    # run's.
+
+    def _layout_sig(self) -> str:
+        """Fingerprint of the lane encoding: a resume is sound only when
+        the resuming process rebuilds the IDENTICAL layout and lane plan
+        (both derive deterministically from the model and Bounds).  The
+        same text as the reference's, so the two agree on one layout."""
+        import hashlib
+        lay = self.layout
+        desc = repr((lay.vars, [lay.specs[v] for v in lay.vars],
+                     [str(v) for v in lay.uni.values],
+                     lay.plan.signature()))
+        return hashlib.sha256(desc.encode()).hexdigest()
+
+    def _write_ck(self, mode: str, **state) -> None:
+        """Write the device checkpoint (engine/ckpt.py, kind "device");
+        a failed periodic write logs and the search goes on."""
+        from ..engine import ckpt as _ckpt
+        payload = dict(mode=mode, module=self.model.module.name,
+                       vars=list(self.model.vars),
+                       layout_sig=self._layout_sig(), **state)
+        if self._tiers is not None and self._tiers.active:
+            # the whole tier hierarchy rides every checkpoint, so a
+            # resume after a spill dedups against exactly the same set
+            payload["tiers"] = self._tiers.dump()
+        try:
+            with obs.current().span("checkpoint.write", mode=mode):
+                _ckpt.write_checkpoint(
+                    self.checkpoint_path, "device",
+                    {"module": self.model.module.name, "mode": mode},
+                    payload)
+        except _ckpt.CkptError as ex:
+            obs.current().counter("checkpoint.write_failures")
+            self.log(f"WARNING: checkpoint write failed ({ex}); the run "
+                     f"continues on the previous checkpoint")
+            return
+        self.log(f"Checkpointing run to {self.checkpoint_path}")
+
+    def _load_ck(self, mode: str) -> dict:
+        """Load and validate resume_from for this engine: its module,
+        variables, device mode and layout signature must be this run's.
+        A tiered checkpoint restores the cold tiers first."""
+        from ..engine.ckpt import CkptError, load_checkpoint
+        _, ck = load_checkpoint(self.resume_from, kind="device")
+        if ck.get("module") != self.model.module.name or \
+                ck.get("vars") != list(self.model.vars):
+            raise CkptError(
+                f"cannot resume: checkpoint is for module "
+                f"{ck.get('module')!r} with variables {ck.get('vars')}, "
+                f"not {self.model.module.name!r}")
+        if ck.get("mode") != mode:
+            raise CkptError(
+                f"cannot resume: checkpoint was written by the "
+                f"{ck.get('mode')!r} device mode, this run uses {mode!r} "
+                f"(re-run with the matching flags)")
+        if ck.get("layout_sig") != self._layout_sig():
+            raise CkptError(
+                "cannot resume: the lane layout differs from the "
+                "checkpoint's (different --seq-cap/--grow-cap/--kv-cap "
+                "or a changed model?)")
+        if ck.get("tiers") is not None:
+            self._ensure_tiers().load(ck["tiers"])
+        return ck
+
+    def _restore_ck_state(self, ck, graph):
+        """The level and host-seen resume: check that the checkpoint
+        carries what this run needs (traces, the behavior graph), log
+        the resume line and return (distinct, generated, depth,
+        trace_levels, frontier_maps, graph, frontier_sids); the trace
+        pair is None when store_trace is off."""
+        if self.store_trace and ck.get("trace_levels") is None:
+            raise ValueError(
+                "cannot resume with traces: the checkpoint was written "
+                "with --no-trace")
+        frontier_sids = None
+        if graph is not None:
+            ckg = ck.get("graph")
+            if ckg is None:
+                raise ValueError(
+                    "cannot resume with temporal properties: the "
+                    "checkpoint has no behavior graph")
+            if graph.collect_edges and not ckg.collect_edges:
+                raise ValueError(
+                    "cannot resume with this PROPERTY set: the "
+                    "checkpoint's behavior graph has no edge log (it "
+                    "was written for 'always'-form obligations only)")
+            graph = ckg
+            frontier_sids = ck["frontier_sids"]
+        trace_levels = ck["trace_levels"] if self.store_trace else None
+        frontier_maps = ck["frontier_maps"] if self.store_trace else None
+        self.log(f"Resumed from {self.resume_from}: {ck['distinct']} "
+                 f"distinct states, {len(ck['frontier'])} on queue.")
+        return (ck["distinct"], ck["generated"], ck["depth"],
+                trace_levels, frontier_maps, graph, frontier_sids)
+
+    def _ck_state_kwargs(self, distinct, generated, depth, trace_levels,
+                         frontier_maps, graph, frontier_sids):
+        """The level and host-seen checkpoint payload's shared fields."""
+        return dict(
+            distinct=distinct, generated=generated, depth=depth,
+            trace_levels=trace_levels if self.store_trace else None,
+            frontier_maps=frontier_maps if self.store_trace else None,
+            graph=graph, frontier_sids=frontier_sids)
+
+    def _write_host_snapshot(self, trace_levels, frontier_maps, graph,
+                             depth, generated) -> None:
+        """An INTERP-format checkpoint (`<checkpoint>.host`) rebuilt from
+        the host-side trace levels, which the interpreter engines
+        (engine/explore.py, engine/parallel.py) resume from the last
+        level barrier.  Every kept state is decoded and re-fingerprinted
+        with the interpreter's state_fingerprint, so the resumed dedup
+        set is exact; a constraint-discarded state the device never kept
+        is re-generated and re-discarded on first contact, as the serial
+        engine counts it.  Skipped with --no-trace, in resident mode (no
+        host rows) and when cfg SYMMETRY ran unreduced on the device
+        (the interpreter would reduce)."""
+        if not self.store_trace or not self.checkpoint_path:
+            return
+        if self.model.symmetry is not None and self.canon is None \
+                and not self.sym_identity:
+            if not getattr(self, "_host_snap_skip_logged", False):
+                self._host_snap_skip_logged = True
+                self.log("-- no host snapshot: SYMMETRY ran unreduced on "
+                         "the device (interp counts would differ)")
+            return
+        from ..engine import ckpt as _ckpt
+        from ..engine.explore import make_canonicalizer, state_fingerprint
+        model = self.model
+        vars = model.vars
+        canon = make_canonicalizer(model)
+        view_expr = getattr(model, "view", None)
+        states: List[Dict[str, Any]] = []
+        parents: List[Optional[int]] = []
+        labels: List[str] = []
+        depth_of: List[int] = []
+        seen: Dict[Any, int] = {}
+        level_sids: List[List[int]] = []
+        for lvl, (rows, prov, par_div) in enumerate(trace_levels):
+            sids: List[int] = []
+            for ridx in frontier_maps[lvl]:
+                ridx = int(ridx)
+                st = self.layout.decode_packed(np.asarray(rows[ridx]))
+                sid = len(states)
+                if prov is None:
+                    parents.append(None)
+                    labels.append("Initial predicate")
+                else:
+                    p = int(prov[ridx])
+                    a, pf = p // par_div, p % par_div
+                    parents.append(level_sids[lvl - 1][pf])
+                    labels.append(self.labels_flat[a])
+                states.append(st)
+                depth_of.append(lvl)
+                key = state_fingerprint(model, canon, view_expr, vars, st)
+                # an fp128 collision may have merged two interp-distinct
+                # states on the device: keep the first sid
+                seen.setdefault(key, sid)
+                sids.append(sid)
+            level_sids.append(sids)
+        collect_edges = graph is not None and graph.collect_edges
+        payload = _ckpt.interp_payload(
+            model, vars, states, parents, labels, depth_of,
+            level_sids[-1] if level_sids else [], generated,
+            max(depth - 1, 0), seen,
+            graph.edges if collect_edges else None, collect_edges, [])
+        snap = self.checkpoint_path + ".host"
+        try:
+            with obs.current().span("checkpoint.host_snapshot",
+                                    states=len(states)):
+                _ckpt.write_checkpoint(
+                    snap, "interp",
+                    {"module": model.module.name,
+                     "engine": "device-snapshot"},
+                    payload)
+        except _ckpt.CkptError as ex:
+            obs.current().counter("checkpoint.write_failures")
+            self.log(f"WARNING: host snapshot write failed ({ex}); the "
+                     f"run continues on the previous snapshot")
+            return
+        obs.current().counter("checkpoint.host_snapshots")
+        self.log(f"Host snapshot (CPU-resumable) written to {snap}")
+
+    def _drain_requested(self, warnings, engine: str) -> bool:
+        """The cooperative drain poll at a level boundary: on a request
+        (drain.py: SIGTERM, or a caller), log it, name it in the
+        warnings and return True; the caller writes its own checkpoint
+        and returns a drained result."""
+        from .. import drain as _drain
+        if not _drain.requested():
+            return False
+        why = _drain.reason()
+        self.log(f"-- drain requested ({why}): stopping at a safe "
+                 f"boundary")
+        obs.current().event("drain", reason=why, engine=engine)
+        warnings.append(
+            f"run drained before completion ({why})"
+            + (f"; resume with --resume {self.checkpoint_path}"
+               if self.checkpoint_path else "; no checkpoint was "
+               "configured — progress was discarded"))
+        return True
 
     # ---- the resident engine ----
 
@@ -1391,36 +1699,91 @@ class TorchExplorer:
 
         CH = _pow2_at_least(self.chunk, lo=64)
         caps = self._res_start_caps(n_init, CH)
-        init_keys, init_packed, init_povf = self._host_keys(init_rows)
-        if init_povf:
-            return self._mk_result(
-                False, distinct, generated, 0, t0, warnings,
-                Violation("error", "capacity overflow", [],
-                          self._pack_ovf_msg()))
-        frontier_np = np.full((caps["FCap"], PW), SENTINEL, np.int32)
-        frontier_np[:distinct] = init_packed[explored_init]
-        frontier = torch.as_tensor(frontier_np, device=dev)
-        fcount = distinct
-        seen_np = np.full((caps["SC"], K), SENTINEL, np.int32)
-        if n_init:
-            order = np.lexsort(tuple(init_keys[:, i]
-                                     for i in reversed(range(K))))
-            seen_np[:n_init] = init_keys[order]
-        seen = torch.as_tensor(seen_np, device=dev)
-        seen_count = n_init
-        del frontier_np, seen_np
+
+        def res_ck(front_np):
+            # caps: the port's own growth state (it keeps no capacity
+            # profiles), which a resume takes as its starting caps
+            self._write_ck(
+                "resident", caps=dict(caps),
+                seen=seen[:seen_count].cpu().numpy(), frontier=front_np,
+                distinct=distinct, generated=generated, depth=depth)
 
         depth = 0
+        if self.resume_from:
+            # the checkpoint holds the seen table and the frontier, so
+            # the initial states are not keyed again
+            ck = self._load_ck("resident")
+            for kk in caps:
+                caps[kk] = max(caps[kk], ck.get("caps", {}).get(kk, 0))
+            # the writing run may have used another --chunk: VC never
+            # exceeds A*CH, AccCap covers 2*VC and FCap
+            caps["VC"] = min(caps["VC"], self.A * CH)
+            caps["AccCap"] = max(caps["AccCap"], 2 * caps["VC"],
+                                 caps["FCap"])
+            cs, fr = ck["seen"], ck["frontier"]
+            distinct = ck["distinct"]
+            generated = ck["generated"]
+            depth = ck["depth"]
+            self.log(f"Resumed from {self.resume_from}: {distinct} "
+                     f"distinct states, {len(fr)} on queue.")
+            if len(fr) == 0:
+                # a COMPLETED-run checkpoint (final_checkpoint): nothing
+                # left to explore, so the stored verdict is replayed
+                # with no kernel launch
+                self.log("Model checking completed. No error has been "
+                         "found.")
+                self.log(f"{generated} states generated, {distinct} "
+                         f"distinct states found, 0 states left on "
+                         f"queue.")
+                self.log(f"The depth of the complete state graph search "
+                         f"is {depth}.")
+                if self.checkpoint_path and self.final_checkpoint and \
+                        self.checkpoint_path != self.resume_from:
+                    self._write_ck(
+                        "resident", caps=dict(caps), seen=cs,
+                        frontier=np.zeros((0, PW), np.int32),
+                        distinct=distinct, generated=generated,
+                        depth=depth)
+                return self._mk_result(True, distinct, generated,
+                                       depth - 1, t0, warnings)
+            front_rows, seen_rows = fr, cs
+        else:
+            init_keys, init_packed, init_povf = self._host_keys(init_rows)
+            if init_povf:
+                return self._mk_result(
+                    False, distinct, generated, 0, t0, warnings,
+                    Violation("error", "capacity overflow", [],
+                              self._pack_ovf_msg()))
+            front_rows = init_packed[explored_init]
+            seen_rows = init_keys[np.lexsort(tuple(
+                init_keys[:, i] for i in reversed(range(K))))] \
+                if n_init else init_keys
+        frontier_np = np.full((caps["FCap"], PW), SENTINEL, np.int32)
+        frontier_np[:len(front_rows)] = front_rows
+        frontier = torch.as_tensor(frontier_np, device=dev)
+        fcount = len(front_rows)
+        seen_np = np.full((caps["SC"], K), SENTINEL, np.int32)
+        seen_np[:len(seen_rows)] = seen_rows
+        seen = torch.as_tensor(seen_np, device=dev)
+        seen_count = len(seen_rows)
+        del frontier_np, seen_np, front_rows, seen_rows
         grow_flag = {ST_OVF_SEEN: "SC", ST_OVF_FRONT: "FCap",
                      ST_OVF_ACC: "AccCap", ST_OVF_VC: "VC"}
         self.log(f"Progress({depth}): {generated} states generated, "
                  f"{distinct} distinct states found, "
                  f"{fcount} states left on queue.")
-        last_progress = time.time()
+        last_progress = last_ck = time.time()
         while True:
-            # chaos sites: crash / device failure entering a level
+            # chaos sites: crash / device failure entering a level; then
+            # the drain poll
             faults.kill_self("run_kill", level=depth, engine="resident")
             faults.inject("device_run_fail", level=depth)
+            if self._drain_requested(warnings, "resident"):
+                if self.checkpoint_path:
+                    res_ck(frontier[:fcount].cpu().numpy())
+                return self._mk_result(True, distinct, generated, depth,
+                                       t0, warnings, None,
+                                       truncated=True, drained=True)
             obs.note_buffer("resident.seen", caps["SC"] * K * 4)
             obs.note_buffer("resident.frontier", caps["FCap"] * PW * 4)
             obs.note_buffer("resident.accumulator",
@@ -1550,6 +1913,10 @@ class TorchExplorer:
                     self.log(f"Progress({depth}): {generated} states "
                              f"generated, {distinct} distinct states "
                              f"found, {fcount} states left on queue.")
+                if self.checkpoint_path and \
+                        now - last_ck >= self.checkpoint_every:
+                    last_ck = now
+                    res_ck(frontier[:fcount].cpu().numpy())
             elif stat == ST_DONE:
                 self.log("Model checking completed. No error has been "
                          "found.")
@@ -1557,10 +1924,17 @@ class TorchExplorer:
                          f"distinct states found, 0 states left on queue.")
                 self.log(f"The depth of the complete state graph search "
                          f"is {depth}.")
+                if self.checkpoint_path and self.final_checkpoint:
+                    res_ck(np.zeros((0, PW), np.int32))
                 return self._mk_result(True, distinct, generated,
                                        depth - 1, t0, warnings)
             elif stat == ST_TRUNC:
                 self.log("-- state limit reached, search truncated")
+                if self.checkpoint_path:
+                    # a truncated resident run is resumable: truncation
+                    # lands on a level boundary, so this is exactly the
+                    # periodic checkpoint's state
+                    res_ck(frontier[:fcount].cpu().numpy())
                 return self._mk_result(
                     True, distinct, generated, depth, t0, warnings,
                     None, truncated=True,
@@ -1798,7 +2172,7 @@ class TorchExplorer:
         return [(t if n is None else t[:n]).cpu().numpy() for t in tensors]
 
     def _run_host_seen(self) -> CheckResult:
-        from .. import native_store
+        from .. import faults, native_store
         from ..sem.eval import _bool, eval_expr
         t0 = time.time()
         tel = obs.current()
@@ -1850,15 +2224,47 @@ class TorchExplorer:
         trace_levels = [(np.asarray(init_packed), None, 0)]
         frontier_maps = [np.asarray(explored_init, dtype=np.int64)]
         depth = 0
+        if self.resume_from:
+            # the store is refilled from the checkpoint before the first
+            # chunk, so every later insert dedups against it
+            ck = self._load_ck("host_seen")
+            (distinct, generated, depth, tl, fm, graph,
+             fsids) = self._restore_ck_state(ck, graph)
+            if self.store_trace:
+                trace_levels, frontier_maps = tl, fm
+            if graph is not None:
+                frontier_sids = fsids
+            store.load(ck["store"])
+            frontier_np = np.ascontiguousarray(ck["frontier"])
+
+        def hs_ck(front_np):
+            self._write_ck(
+                "host_seen", store=store.dump(), frontier=front_np,
+                **self._ck_state_kwargs(distinct, generated, depth,
+                                        trace_levels, frontier_maps,
+                                        graph, frontier_sids))
+
         self.log(f"Progress({depth}): {generated} generated, "
                  f"{distinct} distinct, {len(frontier_np)} on queue.")
-        last_progress = time.time()
+        last_progress = last_ck = time.time()
         # cross-model batching: a batch member's chunk step goes through
         # the shared dispatcher (backend/batch.py) instead of its own —
         # same arguments, the same dict back
         hstep = self._hstep_override(CH) \
             if self._hstep_override is not None else self._hstep_np
         while len(frontier_np) > 0:
+            # chaos sites: a crash, or a terminal device failure,
+            # entering a level; then the drain poll
+            faults.kill_self("run_kill", level=depth, engine="host_seen")
+            faults.inject("device_run_fail", level=depth)
+            if self._drain_requested(warnings, "host_seen"):
+                if self.checkpoint_path:
+                    hs_ck(frontier_np)
+                    self._write_host_snapshot(trace_levels, frontier_maps,
+                                              graph, depth, generated)
+                return self._mk_result(True, distinct, generated, depth,
+                                       t0, warnings, None,
+                                       truncated=True, drained=True)
             L = len(frontier_np)
             lvl_t0 = time.time()
             lvl_gen0 = generated
@@ -2096,6 +2502,12 @@ class TorchExplorer:
             frontier_np = new_rows_np[sel]
 
             now = time.time()
+            if self.checkpoint_path and \
+                    now - last_ck >= self.checkpoint_every:
+                last_ck = now
+                hs_ck(frontier_np)
+                self._write_host_snapshot(trace_levels, frontier_maps,
+                                          graph, depth, generated)
             if now - last_progress >= self.progress_every:
                 last_progress = now
                 self.log(f"Progress({depth}): {generated} generated, "
@@ -2110,6 +2522,10 @@ class TorchExplorer:
         self.log("Model checking completed. No error has been found.")
         self.log(f"{generated} states generated, {distinct} distinct "
                  f"states found, 0 states left on queue.")
+        if self.checkpoint_path and self.final_checkpoint:
+            # a COMPLETED-run checkpoint: an empty frontier over the
+            # whole store; resuming it replays the stored totals
+            hs_ck(np.zeros((0, self.PW), np.int32))
         return self._mk_result(True, distinct, generated, depth - 1, t0,
                                warnings)
 
@@ -2289,6 +2705,15 @@ class TorchExplorer:
                  f"({self.relayouts_left - 1} attempts left)")
         obs.current().counter("expand.relayouts")
         obs.current().reset_levels("adaptive relayout restart")
+        if self.checkpoint_path:
+            # a checkpoint written under the enriched layout could not be
+            # resumed (a resume re-derives the layout from plain
+            # sampling, so the layout signature would differ): the
+            # restarted run writes none, and it never resumes, since the
+            # checkpoint it was started from was already consumed
+            self.log("hybrid: relayout disables checkpointing for the "
+                     "restarted run (the enriched layout would make "
+                     "checkpoints unresumable)")
         try:
             ex2 = TorchExplorer(
                 model, log=self.log, max_states=self.max_states,
@@ -2664,7 +3089,7 @@ class TorchExplorer:
         tel.gauge("por.reduced_states", int(distinct))
 
     def _mk_result(self, ok, distinct, generated, diameter, t0, warnings,
-                   violation=None, truncated=False,
+                   violation=None, truncated=False, drained=False,
                    trunc_reason: Optional[str] = None) -> CheckResult:
         tel = obs.current()
         tel.high_water("device.mem_high_water_bytes",
@@ -2693,13 +3118,14 @@ class TorchExplorer:
             collision_p = n * n * 2.0 ** -129
             tel.gauge("fingerprint.collision_p", collision_p)
         if truncated and trunc_reason is None:
-            trunc_reason = "unattributed"
+            trunc_reason = "drain" if drained else "unattributed"
         if trunc_reason:
             tel.gauge("truncation.reason", trunc_reason)
         return CheckResult(ok=ok, distinct=distinct, generated=generated,
                            diameter=max(diameter, 0), violation=violation,
                            wall_s=time.time() - t0, truncated=truncated,
-                           warnings=warnings, trunc_reason=trunc_reason,
+                           warnings=warnings, drained=drained,
+                           trunc_reason=trunc_reason,
                            seen_mode=seen_mode, collision_p=collision_p,
                            tiers=tiers_stats)
 

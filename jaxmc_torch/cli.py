@@ -6,7 +6,9 @@
         [--host-seen | --resident] [--chunk N]
         [--seen-cap ROWS [--seen-spill DIR]] [--sample BFS WALKS DEPTH]
         [--seq-cap N] [--grow-cap N] [--kv-cap N] [--quiet]
-        [--progress-every S]
+        [--progress-every S] [--checkpoint F [--checkpoint-every S]]
+        [--resume F] [--backend interp [--workers N]]
+        [--no-device-fallback]
 
 Prints the same TLC-style progress and final lines as `jaxmc check
 --backend jax`.  The search runs on the CUDA card unless --device cpu
@@ -20,69 +22,126 @@ runs (JAXMC_TIER_HOST_KEYS bounds the host tier).  Temporal and
 refinement PROPERTYs are checked on the level and host-seen engines.  A
 cfg that names neither SPECIFICATION nor INIT runs TLC's
 No-Behavior-Spec mode: the module's ASSUMEs are evaluated and nothing
-is searched.  Exit codes: 0 no error found, 1 a violation, 2 a refused
-mode, an uncompilable spec or any other error (one line on stderr,
-`error: <Type>: <message>`, as the reference prints it).
+is searched.
+
+--checkpoint F writes a checkpoint (engine/ckpt.py's container) every
+--checkpoint-every seconds at a level boundary, and beside it, on the
+level and host-seen engines with traces, the interpreter-format host
+snapshot F.host; --resume F continues a run from F with the same
+engine flags.  SIGTERM drains the search: it stops at the next level
+boundary, checkpoints when --checkpoint is given, prints the resume
+hint and exits 143.  --backend interp runs the interpreter engines
+instead of the device (engine/explore.py, or engine/parallel.py with
+--workers N > 1), which resume a device run's F.host.  A terminal
+device failure exits 2: the port never demotes a run to the CPU
+(--no-device-fallback is accepted and is the only behaviour).
+
+Exit codes: 0 no error found, 1 a violation, 2 a refused mode, an
+uncompilable spec, a damaged or foreign checkpoint, a device failure or
+any other error (one line on stderr, `error: <Type>: <message>`, as the
+reference prints it), 143 drained.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import signal
 import sys
 import time
 from typing import List, Optional
 
 
-# options of `jaxmc check` whose engines this slice does not port, and
-# the ROADMAP item that ports each
-UNPORTED = (("checkpoint", "--checkpoint (level checkpoints)", "A.15"),
-            ("resume", "--resume (level checkpoints)", "A.15"))
-
-
-def refuse_unported(args) -> None:
-    """Refuse the options no ported engine runs, and --resident with
-    --host-seen with the reference's text for the pair, before the
-    model loads."""
-    from .compile.vspec import ModeError
-    if args.host_seen and args.resident:
-        raise ModeError("resident and host_seen are mutually exclusive: "
-                        "resident keeps the seen-set on device, host_seen "
-                        "keeps it in the native host store")
-    for attr, what, item in UNPORTED:
-        if getattr(args, attr, None):
-            raise ModeError(f"{what} is not ported to the torch engine "
-                            f"yet (ROADMAP {item})")
+def interp_engine(model, cfg, log):
+    """The interpreter engine --backend interp runs, chosen as the
+    reference's CheckSession.compile chooses (jaxmc/session.py:518-548):
+    --por runs the serial Explorer, --workers N > 1 (None or 0: the
+    default count) the ParallelExplorer, else the serial Explorer."""
+    from .engine.explore import Explorer
+    from .engine.parallel import ParallelExplorer, default_workers
+    workers = default_workers() if not cfg.workers \
+        else max(1, cfg.workers)
+    kw = dict(log=log, max_states=cfg.max_states,
+              progress_every=cfg.progress_every,
+              checkpoint_path=cfg.checkpoint,
+              checkpoint_every=cfg.checkpoint_every,
+              resume_from=cfg.resume,
+              final_checkpoint=cfg.final_checkpoint)
+    if cfg.por:
+        return Explorer(model, por=True, **kw)
+    if workers > 1:
+        return ParallelExplorer(model, workers=workers, **kw)
+    return Explorer(model, **kw)
 
 
 def cmd_check(args) -> int:
-    from .backend.bfs import TorchExplorer
-    from .compile.vspec import Bounds, CompileError, ModeError
-    from .engine.explore import format_trace
+    from . import drain
     from .obs import Logger
-    from .session import CheckSession, SessionConfig
 
     t0 = time.time()
     log = Logger(quiet=args.quiet)
+    # SIGTERM asks for a drain: the engine checkpoints at its next level
+    # boundary and returns a drained result (exit 143 below).  The
+    # previous handler comes back when the command returns, so a caller
+    # that runs `main` in its own process keeps its own
+    prev = signal.getsignal(signal.SIGTERM)
+    installed = drain.install()
     try:
-        refuse_unported(args)
-        sess = CheckSession(SessionConfig.from_args(args))
+        return _check(args, log, t0)
+    finally:
+        if installed:
+            signal.signal(signal.SIGTERM, prev)
+
+
+def _check(args, log, t0) -> int:
+    from . import drain, faults
+    from .backend.bfs import TorchExplorer
+    from .compile.vspec import Bounds, CompileError, ModeError
+    from .engine.explore import format_trace
+    from .session import CheckSession, SessionConfig
+
+    interp = args.backend == "interp"
+    try:
+        if args.host_seen and args.resident:
+            raise ModeError("resident and host_seen are mutually "
+                            "exclusive: resident keeps the seen-set on "
+                            "device, host_seen keeps it in the native "
+                            "host store")
+        cfg = SessionConfig.from_args(args)
+        sess = CheckSession(cfg)
         if sess.parse() == "assumes":
             return sess.run_assumes()
-        eng = TorchExplorer(sess.model, log=log,
-                            max_states=args.max_states,
-                            store_trace=not args.no_trace,
-                            progress_every=args.progress_every,
-                            bounds=Bounds(seq_cap=args.seq_cap,
-                                          grow_cap=args.grow_cap,
-                                          kv_cap=args.kv_cap),
-                            sample_cfg=tuple(args.sample),
-                            seen_mode=args.seen, device=args.device,
-                            por=args.por, host_seen=args.host_seen,
-                            resident=args.resident, chunk=args.chunk,
-                            seen_cap=args.seen_cap,
-                            spill_dir=args.seen_spill)
-        res = eng.run()
+        if interp:
+            eng = interp_engine(sess.model, cfg, log)
+        else:
+            eng = TorchExplorer(sess.model, log=log,
+                                max_states=args.max_states,
+                                store_trace=not args.no_trace,
+                                progress_every=args.progress_every,
+                                bounds=Bounds(seq_cap=args.seq_cap,
+                                              grow_cap=args.grow_cap,
+                                              kv_cap=args.kv_cap),
+                                sample_cfg=tuple(args.sample),
+                                seen_mode=args.seen, device=args.device,
+                                por=args.por, host_seen=args.host_seen,
+                                resident=args.resident, chunk=args.chunk,
+                                seen_cap=args.seen_cap,
+                                spill_dir=args.seen_spill,
+                                checkpoint_path=args.checkpoint,
+                                checkpoint_every=args.checkpoint_every,
+                                resume_from=args.resume)
+        try:
+            res = eng.run()
+        except (faults.FaultInjected, RuntimeError, OSError, MemoryError,
+                ConnectionError) as e:
+            if interp:
+                raise
+            # a terminal device failure: no demotion to the CPU engine
+            # (ROADMAP A.14), so the run ends here with one named line
+            print(f"error: terminal device failure ({type(e).__name__}: "
+                  f"{e}); the torch engine does not fall back to the "
+                  f"CPU", file=sys.stderr)
+            return 2
     except ModeError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -92,12 +151,23 @@ def cmd_check(args) -> int:
               f"interp", file=sys.stderr)
         return 2
     wall = time.time() - t0
+    backend = "interp" if interp else f"torch:{eng.device}"
     print(f"{res.generated} states generated, {res.distinct} distinct states "
           f"found ({res.generated / max(res.wall_s, 1e-9):.0f} states/sec, "
-          f"backend=torch:{eng.device}, wall {wall:.2f}s)")
+          f"backend={backend}, wall {wall:.2f}s)")
     for w in res.warnings:
         print(f"Warning: {w}")
     if res.ok:
+        if res.drained:
+            # checkpointed at a level boundary and resumable: never a 0,
+            # the search did not complete
+            print("Search DRAINED at a safe boundary - no error found "
+                  "in the explored prefix.")
+            print(f"jaxmc: drained ({drain.reason()})"
+                  + (f"; resume with --resume {args.checkpoint}"
+                     if args.checkpoint else "; no checkpoint was "
+                     "configured"), file=sys.stderr)
+            return drain.DRAIN_EXIT_CODE
         if res.truncated:
             print("Search TRUNCATED at state limit - no error found in the "
                   "explored prefix.")
@@ -159,17 +229,43 @@ def build_parser() -> argparse.ArgumentParser:
                    help="message-table domain capacity floor")
     c.add_argument("--quiet", action="store_true")
     c.add_argument("--progress-every", type=float, default=30.0)
-    # accepted so that a `jaxmc check` command line is refused by name
-    c.add_argument("--checkpoint", default=None, help=argparse.SUPPRESS)
-    c.add_argument("--resume", default=None, help=argparse.SUPPRESS)
+    c.add_argument("--checkpoint", default=None, metavar="FILE",
+                   help="write periodic checkpoints to this file at level "
+                        "boundaries (and FILE.host, the interpreter-format "
+                        "snapshot, on the level and host-seen engines "
+                        "with traces)")
+    c.add_argument("--checkpoint-every", type=float, default=600.0,
+                   metavar="S", help="seconds between checkpoints")
+    c.add_argument("--resume", default=None, metavar="FILE",
+                   help="resume a run from a checkpoint (the engine and "
+                        "its flags must match the writing run's)")
+    c.add_argument("--backend", default=None,
+                   choices=("torch", "interp", "jax", "auto", "cpu", "gpu",
+                            "tpu"),
+                   help="interp runs the interpreter engines on the host "
+                        "(--workers N); any other value, or none, runs "
+                        "the device engine")
+    c.add_argument("--workers", type=int, metavar="N", default=None,
+                   help="interp backend: worker processes (default: "
+                        "JAXMC_WORKERS, else min(cpu_count, 8); 1 = the "
+                        "serial engine)")
+    c.add_argument("--no-device-fallback", action="store_true",
+                   help="exit on a terminal device failure (the port "
+                        "never falls back to the CPU, so this is always "
+                        "so)")
     c.set_defaults(fn=cmd_check)
     return p
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    from .engine.ckpt import CkptError
     args = build_parser().parse_args(argv)
     try:
         return args.fn(args)
+    except CkptError as e:
+        # a missing, damaged or foreign checkpoint: one line, exit 2
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     except FileNotFoundError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2

@@ -24,7 +24,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
 BUILD_ROOT = os.path.join(HERE, "_build")
 SOURCES = ("unpack", "keys", "probe", "merge", "canon", "por", "hstep",
-           "resident", "batch")
+           "resident", "batch", "fullsort")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -57,6 +57,10 @@ ARGTYPES = {
     "jmc_batch_count": [_P] * 9 + [_I, _I, _I, _P],
     "jmc_batch_scan": [_P] * 8 + [_I, _I, _I, _P],
     "jmc_batch_scatter": [_P] * 12 + [_I, _I, _I, _I, _P],
+    "jmc_fullsort_threads": [],
+    "jmc_fullsort_count": [_P] * 4 + [_I64, _I, _P],
+    "jmc_fullsort_scan": [_P] * 5 + [_I, _P],
+    "jmc_fullsort_scatter": [_P] * 7 + [_I64, _I, _I64, _I64, _P],
 }
 # return types other than the cudaError_t (an int) of a launch
 RESTYPE = {"jmc_canon_threads": _I64}
@@ -72,7 +76,9 @@ ENTRY = {"unpack": ["jmc_unpack_rows"], "keys": ["jmc_keys_of"],
                       "jmc_res_compact_scan", "jmc_res_compact_scatter",
                       "jmc_res_fold_copy", "jmc_res_fold_scalar"],
          "batch": ["jmc_batch_threads", "jmc_batch_count", "jmc_batch_scan",
-                   "jmc_batch_scatter"]}
+                   "jmc_batch_scatter"],
+         "fullsort": ["jmc_fullsort_threads", "jmc_fullsort_count",
+                      "jmc_fullsort_scan", "jmc_fullsort_scatter"]}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

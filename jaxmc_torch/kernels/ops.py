@@ -41,6 +41,11 @@ too, which is how the kernels are compared with them on the card.
   batch_epilogue K10 backend/batch.py BatchDispatcher (vmap of
                     _hstep_core): K7's epilogue for B batch members in
                     one set of launches
+  fullsort_dedup K11 backend/bfs.py _get_step's full-sort branch
+                    (JAXMC_LEVEL_RANKMERGE=0) after its sort: the
+                    first-of-run new mask and the two stable
+                    compactions (new candidate indices, merged seen
+                    table)
 """
 
 from __future__ import annotations
@@ -66,7 +71,8 @@ LAUNCHES: Dict[str, int] = {"unpack_rows": 0, "keys_of": 0,
                             "resident_compact": 0,
                             "resident_compact_explore": 0,
                             "resident_compact_edges": 0,
-                            "resident_fold": 0, "batch_epilogue": 0}
+                            "resident_fold": 0, "batch_epilogue": 0,
+                            "fullsort_dedup": 0}
 # arms the device POR filter takes (por.cu kMaxWords * 64)
 POR_MAX_ARMS = 1024
 
@@ -1097,3 +1103,87 @@ def batch_epilogue(en: torch.Tensor, aok: torch.Tensor, ov: torch.Tensor,
         _launch("batch_epilogue", rc)
     return dict(scalars=scalars, dead=dead, offsets=offsets, idx=idx,
                 fps=fps, rows=rows, inv_ok=inv_out, explore=exp_out)
+
+
+# ---------------------------------------------------------------------------
+# K11 fullsort_dedup
+# ---------------------------------------------------------------------------
+
+def fullsort_dedup_twin(skeys: torch.Tensor, sflag: torch.Tensor,
+                        perm: torch.Tensor, SC: int, C: int):
+    """The reference's full-sort branch after its sort (bfs.py:1820-
+    1851), in torch: over the sorted keys skeys [N, K] (N = SC + C),
+    their flags sflag [N] (1: a candidate) and pre-sort indices perm
+    [N], flag the first of each run of equal valid keys that is a
+    candidate (`new`) and the rows the merged table keeps (valid seen
+    rows and the new ones), then take the two stable partitions
+    lax.sort(num_keys=1, is_stable=True) makes.
+
+    Returns (new_cidx [C] int32: perm - SC of the new rows in key
+    order, then the other rows'; seen2 [SC, K] int32: the kept keys in
+    key order, then the others; counts int64 [2] = (new_count,
+    seen_count2))."""
+    N = skeys.shape[0]
+    dev = skeys.device
+    rvalid = skeys[:, 0] == 0
+    neq_prev = torch.ones(N, dtype=torch.bool, device=dev)
+    if N > 1:
+        neq_prev[1:] = (skeys[1:] != skeys[:-1]).any(dim=1)
+    cand = sflag != 0
+    new = cand & rvalid & neq_prev
+    keep = (~cand & rvalid) | new
+    cidx = perm - SC
+    o_new = torch.argsort((~new).to(torch.int32), stable=True)
+    o_keep = torch.argsort((~keep).to(torch.int32), stable=True)
+    counts = torch.stack([new.sum(), keep.sum()]).to(torch.int64)
+    return (cidx[o_new][:C].to(torch.int32).contiguous(),
+            skeys[o_keep][:SC].contiguous(), counts)
+
+
+def fullsort_dedup(skeys: torch.Tensor, sflag: torch.Tensor,
+                   perm: torch.Tensor, SC: int, C: int):
+    """K11: fullsort_dedup_twin's function in three launches (block
+    counts, one-block scan, ballot-ranked scatter); nothing is read
+    back.  Equal to the twin over new_cidx[:new_count] and
+    seen2[:seen_count2]; the kernel writes nothing past them (new_cidx
+    starts as zeros, seen2 as torch.empty) and nothing reads them."""
+    _check(skeys, "fullsort_dedup.skeys", 2)
+    _check(sflag, "fullsort_dedup.sflag", 1)
+    _check(perm, "fullsort_dedup.perm", 1)
+    N, K = skeys.shape
+    if not (sflag.shape[0] == perm.shape[0] == N == SC + C):
+        raise ValueError(f"fullsort_dedup: {N} keys, {sflag.shape[0]} "
+                         f"flags, {perm.shape[0]} indices for SC {SC} + "
+                         f"C {C}")
+    if N >= 2**31 - 256:
+        raise ValueError(f"fullsort_dedup: {N} rows, the kernel's "
+                         f"indices are int32")
+    if skeys.device.type == "cpu":
+        return fullsort_dedup_twin(skeys, sflag, perm, SC, C)
+    _same_device("fullsort_dedup", skeys, sflag, perm)
+    from . import build
+    lib = build.library("fullsort")
+    dev = skeys.device
+    threads = int(lib.jmc_fullsort_threads())
+    nb = max(1, -(-N // threads))
+    bcnt = torch.empty((2, nb), dtype=torch.int32, device=dev)
+    boff = torch.empty((2, nb), dtype=torch.int64, device=dev)
+    counts = torch.empty((2,), dtype=torch.int64, device=dev)
+    new_cidx = torch.zeros((C,), dtype=torch.int32, device=dev)
+    seen2 = torch.empty((SC, K), dtype=torch.int32, device=dev)
+    rc = lib.jmc_fullsort_count(_ptr(skeys), _ptr(sflag), _ptr(bcnt[0]),
+                                _ptr(bcnt[1]), ctypes.c_int64(N),
+                                ctypes.c_int(K), _stream())
+    _launch("fullsort_dedup", rc)
+    rc = lib.jmc_fullsort_scan(_ptr(bcnt[0]), _ptr(bcnt[1]), _ptr(boff[0]),
+                               _ptr(boff[1]), _ptr(counts),
+                               ctypes.c_int(nb), _stream())
+    _launch("fullsort_dedup", rc)
+    if N:
+        rc = lib.jmc_fullsort_scatter(
+            _ptr(skeys), _ptr(sflag), _ptr(perm), _ptr(boff[0]),
+            _ptr(boff[1]), _ptr(new_cidx), _ptr(seen2), ctypes.c_int64(N),
+            ctypes.c_int(K), ctypes.c_int64(SC), ctypes.c_int64(C),
+            _stream())
+        _launch("fullsort_dedup", rc)
+    return new_cidx, seen2, counts

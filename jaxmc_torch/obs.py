@@ -3,7 +3,8 @@ logger.
 
 A small module of the port's own.  It holds the calls the engines and
 the copied front end, evaluator, tiers and faults make (`current().
-counter/gauge/span/level/event`, `Logger`, `note_buffer`) and
+counter/gauge/span/level/event`, `Logger`, `note_buffer`,
+`eta_suffix`) and
 keeps their values in memory, where a caller reads them after a run
 (`current().levels`, `.gauges`, ...).  Nothing is written to disk.
 """
@@ -105,6 +106,13 @@ def reset() -> Telemetry:
 def note_buffer(name: str, nbytes: int) -> None:
     """Record a device buffer's size at its current capacity."""
     _CURRENT.buffers[name] = int(nbytes)
+
+
+def eta_suffix(distinct: Optional[int] = None, tel=None) -> str:
+    """The progress line's estimate tail, which the copied interpreter
+    engines print: the port attaches no progress estimator, so it is
+    "", as in the reference's runs without one."""
+    return ""
 
 
 def device_mem_high_water() -> Optional[int]:

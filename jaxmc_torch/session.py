@@ -63,7 +63,9 @@ class SessionConfig:
     backend: str = "interp"
     platform: Optional[str] = None
     max_states: Optional[int] = None
+    workers: Optional[int] = None
     no_deadlock: bool = False
+    no_device_fallback: bool = False
     progress_every: float = 30.0
     seq_cap: int = Bounds.seq_cap
     grow_cap: int = Bounds.grow_cap
@@ -76,8 +78,11 @@ class SessionConfig:
     seen: str = "auto"
     seen_cap: Optional[int] = None
     checkpoint: Optional[str] = None
+    checkpoint_every: float = 600.0
     resume: Optional[str] = None
     por: bool = False
+    # checkpoint COMPLETED runs too (a resume replays the verdict)
+    final_checkpoint: bool = False
     device: Optional[str] = None
 
     @classmethod

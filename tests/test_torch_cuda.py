@@ -1,9 +1,9 @@
-"""The CUDA kernels of the torch port (K1-K10) against their plain
+"""The CUDA kernels of the torch port (K1-K11) against their plain
 PyTorch twins, on the card, at the shapes the engines give them, the
 level engine on the card against the corpus pins, with SYMMETRY, VIEW
 and --por among them, the host-seen engine on the card against the
-same run on the CPU, PROPERTYs on both engines and a batch cohort on
-the card against the CPU.
+same run on the CPU, PROPERTYs on both engines, a batch cohort, the
+full-sort step and checkpoint/resume on the card against the CPU.
 
 Needs a CUDA card and nvcc; elsewhere every test skips with the reason.
 Run on the card with:  python -m pytest -m gpu tests/test_torch_cuda.py
@@ -660,3 +660,132 @@ def test_batch_cohort_on_the_card_equals_the_cpu(card, cohort, tmp_path):
                      and format_trace(m.result.violation))
                     for m in members]
     assert res["cuda"] == res["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# K11 fullsort_dedup, the full-sort step, checkpoints and resume
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("SC,C,K", [(64, 32, 3), (1 << 16, 40000, 3),
+                                    (1 << 18, 1 << 18, 5), (256, 0, 2)])
+@pytest.mark.parametrize("dup", [0.0, 0.5, 0.95])
+def test_fullsort_dedup_matches_twin(card, SC, C, K, dup):
+    """K11 against its twin over the sorted [SC + C, K] keys of a seen
+    table (a live prefix, then invalid rows) and candidates with
+    duplicates and invalid rows: new_cidx over new_count and seen2 over
+    seen_count2 bit for bit, the counts equal."""
+    from jaxmc_torch.kernels import ops
+    rng = np.random.default_rng(SC + C + K)
+    n_seen = SC // 3
+    seen = np.full((SC, K), SENT, np.int32)
+    sv = np.unique(rng.integers(-50, 50, (n_seen, K - 1)).astype(np.int32),
+                   axis=0)
+    seen[:len(sv), 0] = 0
+    seen[:len(sv), 1:] = sv
+    cand = np.zeros((C, K), np.int32)
+    cand[:, 1:] = rng.integers(-50, 50, (C, K - 1))
+    take = rng.random(C) < dup
+    if len(sv) and take.any():
+        cand[take, 1:] = sv[rng.integers(0, len(sv), int(take.sum()))]
+    bad = rng.random(C) < 0.2
+    cand[bad, 0] = 1
+    cand[bad, 1:] = SENT
+    allk = torch.as_tensor(np.concatenate([seen, cand]), device=card)
+    perm = ops.lsd_sort(allk)
+    skeys = allk[perm].contiguous()
+    perm = perm.to(torch.int32)
+    sflag = (perm >= SC).to(torch.int32)
+    ops.reset_launches()
+    nk, sk, ck = ops.fullsort_dedup(skeys, sflag, perm, SC, C)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fullsort_dedup"] == 3
+    nt, st, ct = ops.fullsort_dedup_twin(skeys, sflag, perm, SC, C)
+    _eq(ck, ct)
+    n_new, n_keep = int(ct[0]), int(ct[1])
+    _eq(nk[:n_new], nt[:n_new])
+    _eq(sk[:n_keep], st[:n_keep])
+
+
+@pytest.mark.parametrize("spec,cfg,kw", [
+    ("transfer_scaled.tla", None, {}),
+    ("pcal_intro_buggy.tla", None, {}),
+    ("msgstoy.tla", "msgstoy.cfg", dict(por=True)),
+])
+def test_fullsort_on_the_card_equals_the_cpu(card, spec, cfg, kw,
+                                             monkeypatch):
+    """JAXMC_LEVEL_RANKMERGE=0 on the card, through K11, equals the same
+    run on the CPU and the rank path on the card."""
+    from jaxmc_torch.backend.bfs import TorchExplorer
+    from jaxmc_torch.engine.explore import format_trace
+    from jaxmc_torch.kernels import ops
+    from jaxmc_torch.session import load_model
+    cfgp = os.path.join(SPECS, cfg) if cfg else None
+
+    def run(dev, flag):
+        monkeypatch.setenv("JAXMC_LEVEL_RANKMERGE", flag)
+        r = TorchExplorer(load_model(os.path.join(SPECS, spec), cfgp,
+                                     no_deadlock=bool(kw)),
+                          device=dev, **kw).run()
+        v = r.violation
+        return (r.ok, r.distinct, r.generated, r.diameter,
+                v and format_trace(v))
+    ops.reset_launches()
+    full = run("cuda", "0")
+    assert ops.LAUNCHES["fullsort_dedup"] > 0
+    assert ops.LAUNCHES["rank_merge"] == 0
+    assert full == run("cpu", "0") == run("cuda", "1")
+
+
+@pytest.mark.parametrize("engine", ["level", "host_seen", "resident"])
+def test_resume_on_the_card_equals_the_cpu(card, engine, tmp_path):
+    """A truncation checkpoint written on the card equals the CPU's
+    field by field (the resident caps aside: the card starts from larger
+    caps), and the card's resume reaches the pins."""
+    from jaxmc_torch.backend.bfs import TorchExplorer
+    from jaxmc_torch.engine.ckpt import load_checkpoint
+    from jaxmc_torch.session import load_model
+    spec = os.path.join(SPECS, "transfer_scaled.tla")
+    kw = {"level": {}, "host_seen": dict(host_seen=True, chunk=4096),
+          "resident": dict(resident=True, chunk=4096)}[engine]
+    cks = {}
+    for dev in ("cuda", "cpu"):
+        cks[dev] = str(tmp_path / f"{dev}.ck")
+        TorchExplorer(load_model(spec), device=dev, max_states=20000,
+                      checkpoint_path=cks[dev], checkpoint_every=0.0,
+                      **kw).run()
+    a = load_checkpoint(cks["cuda"], kind="device")[1]
+    b = load_checkpoint(cks["cpu"], kind="device")[1]
+    a.pop("caps", None)
+    b.pop("caps", None)
+    assert set(a) == set(b)
+    for k in a:
+        if isinstance(a[k], np.ndarray):
+            np.testing.assert_array_equal(a[k], b[k])
+        elif k not in ("trace_levels", "frontier_maps", "graph"):
+            assert a[k] == b[k], k
+    r = TorchExplorer(load_model(spec), device="cuda",
+                      resume_from=cks["cuda"], **kw).run()
+    assert (r.ok, r.distinct, r.generated, r.diameter) == \
+        (True, 153701, 311153, 9)
+
+
+def test_completed_resident_checkpoint_launches_nothing(card, tmp_path):
+    """Resuming a completed resident checkpoint replays the verdict with
+    zero kernel launches: no level runs and the initial states are not
+    keyed."""
+    from jaxmc_torch.backend.bfs import TorchExplorer
+    from jaxmc_torch.kernels import ops
+    from jaxmc_torch.session import load_model
+    spec = os.path.join(SPECS, "transfer_scaled.tla")
+    ck = str(tmp_path / "f.ck")
+    TorchExplorer(load_model(spec), device="cuda", resident=True,
+                  chunk=4096, checkpoint_path=ck,
+                  final_checkpoint=True).run()
+    eng = TorchExplorer(load_model(spec), device="cuda", resident=True,
+                        chunk=4096, resume_from=ck)
+    ops.reset_launches()
+    r = eng.run()
+    torch.cuda.synchronize()
+    assert (r.ok, r.distinct, r.generated, r.diameter) == \
+        (True, 153701, 311153, 9)
+    assert not any(ops.LAUNCHES.values()), ops.LAUNCHES

@@ -112,20 +112,47 @@ def test_unported_modes_are_refused(why, item, tmp_path):
     (["--seen-cap", "64", "--resume", "x.ck"], "A.15"),
     (["--checkpoint", "x.ck"], "A.15"),
 ])
-def test_cli_refuses_unported_options_by_item(flag, item, capsys):
+def test_cli_refuses_unported_options_by_item(flag, item, capsys,
+                                              tmp_path):
+    """These command lines were refused naming ROADMAP A.15 until it
+    ported checkpoints and resume.  Now each runs and names no item: a
+    --checkpoint line writes its checkpoint at every level boundary
+    (--checkpoint-every 0), and the --resume line continues a run that
+    the same engine checkpointed."""
     from jaxmc_torch.cli import main
+    from jaxmc_torch.engine.ckpt import load_checkpoint
     spec = os.path.join(ROOT, "specs", "constoy.tla")
-    assert main(["check", spec, "--device", "cpu"] + flag) == 2
-    assert f"ROADMAP {item}" in capsys.readouterr().err
+    ck = str(tmp_path / "x.ck")
+    flag = [ck if f == "x.ck" else f for f in flag]
+    if "--resume" in flag:
+        assert main(["check", spec, "--device", "cpu", "--max-states", "10",
+                     "--checkpoint", ck, "--checkpoint-every", "0"]
+                    + flag[:2]) == 0
+        capsys.readouterr()
+    else:
+        flag += ["--checkpoint-every", "0"]
+    assert main(["check", spec, "--device", "cpu"] + flag) == 0
+    out, err = capsys.readouterr()
+    assert f"ROADMAP {item}" not in err + out
+    assert "43 states generated, 21 distinct states found" in out
+    _, payload = load_checkpoint(ck, kind="device")
+    assert payload["module"] == "constoy"
+    if "--resume" in flag:
+        assert f"Resumed from {ck}: " in out
 
 
 @pytest.mark.parametrize("mod", ["jaxmc_torch.backend.batch",
                                  "jaxmc_torch.batchbench",
                                  "jaxmc_torch.session",
-                                 "jaxmc_torch.cli"])
+                                 "jaxmc_torch.cli",
+                                 "jaxmc_torch.engine.ckpt",
+                                 "jaxmc_torch.drain",
+                                 "jaxmc_torch.engine.parallel",
+                                 "jaxmc_torch.engine.explore"])
 def test_new_modules_import_without_jax(mod):
-    """The batching and session modules import with jax and jaxmc made
-    unimportable (a subprocess with both blocked)."""
+    """The batching, session, checkpoint, drain and interpreter modules
+    import with jax and jaxmc made unimportable (a subprocess with both
+    blocked)."""
     import subprocess
     import sys
     code = ("import sys\n"
