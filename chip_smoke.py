@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Smoke run of the torch port on one CUDA card: builds the eleven
+"""Smoke run of the torch port on one CUDA card: builds the twelve
 hand-written kernels and the native fingerprint store, holds each
 kernel against its plain PyTorch twin at the shapes the engines give
 it, times both, and checks models end to end through the port's entry
 points: the level engine, the chunked host-seen engine, the resident
 engine, the out-of-core seen tiers, temporal and refinement PROPERTYs,
-cross-model batching, checkpoints, resume and drain, and the full-sort
-level step.
+cross-model batching, checkpoints, resume and drain, the full-sort
+level step, and the telemetry artifacts, the profiler and the backend
+oracle.
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
@@ -104,11 +105,12 @@ Phases (any failure raises; the exit code is then not 0):
                by JAXMC_FAULTS=run_kill:level=5 in a CLI subprocess, then
                resumed on the card and, from its `.host` snapshot, in
                ParallelExplorer: the pins; the snapshot's wall per
-               state.  The 4-process model with --no-trace on the level,
-               host-seen and resident engines (chunk 65,536): truncated
-               at half its distinct states and resumed, and a CLI
-               subprocess drained by SIGTERM (exit 143, the resume
-               hint) and resumed, each to phase 7's pins; the resident
+               state.  The 4-process model with --no-trace on the level
+               and resident engines, transfer_scaled (3 processes) on
+               the host-seen engine (chunk 65,536): truncated at half
+               its distinct states and resumed, and a CLI subprocess
+               drained by SIGTERM (exit 143, the resume hint) and
+               resumed, each to its pins; the resident
                engine's completed checkpoint replayed with no kernel
                launch; each engine's checkpoint write wall and file size
  20 full sort  the 4-process model with JAXMC_LEVEL_RANKMERGE=0 on the
@@ -119,6 +121,24 @@ Phases (any failure raises; the exit code is then not 0):
                byte bound and torch.nonzero + index_select, and the
                whole full-sort step against the rank step (row
                "fullsort_dedup@4p")
+ 21 obs        `python -m jaxmc_torch.backend.oracle --smoke` (verdict
+               gpu); transfer_scaled through the CLI with --backend auto
+               --metrics-out --trace --profile: the pins, the oracle's
+               gpu verdict, the artifact and every trace line valid
+               (obs/schema.py), bfs.level_step dispatched once a level,
+               the HBM model at most the allocator's peak (ratio
+               printed), the card's name and power limit in the env
+               block; the same run without --profile: equal counts,
+               stdout and trace; the 4-process model profiled: each
+               site's dispatches, wall and share of the search wall, the
+               dominant site, model against measured memory; `obs report`
+               and `obs top`; --profile=xla's torch.profiler trace; K12
+               oracle_probe launched twice in each gpu probe process (the
+               count the probe reports, from --smoke and from the
+               profiled auto run, whose count is the row's) and held
+               against its twin, bit-exact, timed with L2 written over
+               before each call beside its bound and searchsorted +
+               index_copy_ + two sums (row "oracle_probe")
 The last three lines are the `nvidia-smi` name and power limit, the
 kernel table as JSON and {"ok": true, "device": {...}}.
 
@@ -134,6 +154,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -220,6 +241,8 @@ ENGINE_FLAGS = {"level": [],
                 "host_seen": ["--host-seen", "--chunk", str(CHUNK_HS)],
                 "resident": ["--resident", "--chunk", str(CHUNK_RES)]}
 DURABLE = os.path.join(ROOT, "jaxmc_torch", "kernels", "_build", "durable")
+# phase 21: the artifacts and traces of its CLI runs (removed after)
+OBS_DIR = os.path.join(ROOT, "jaxmc_torch", "kernels", "_build", "obs")
 
 
 def log(msg: str) -> None:
@@ -612,15 +635,18 @@ def phase_verdicts():
 def phase_real_size():
     """The 4-process model on the kernels and on the twins; returns
     the counts and the kernel run's launch counts."""
+    from jaxmc_torch import obs
     cfg = CFG_4P
     out = {}
     for kind, twins in (("kernels", False), ("twins", True)):
+        # a recording telemetry, whose level records give the widest
+        # frontier (the process-wide default records nothing)
+        tel = obs.reset()
         eng, r, wall, counts, peak = run_counted(
             lambda: _engine(cfg, store_trace=False, twins=twins,
                             progress_every=1e9))
         if kind == "kernels":
-            from jaxmc_torch import obs
-            widest = max(lv["frontier"] for lv in obs.current().levels)
+            widest = max(lv["frontier"] for lv in tel.levels)
             FC = 256
             while FC < widest:
                 FC *= 2
@@ -1325,7 +1351,6 @@ def phase_tiers(pins_4p, tag="16 tiers"):
     --resident with a device seen cap below its state count (to phase
     7's counts, `pins_4p`), and ooc_scaled on the level engine; both
     reach their pins, spilling."""
-    import shutil
     from jaxmc_torch.backend.bfs import TorchExplorer
     from jaxmc_torch.session import load_model
     shutil.rmtree(SPILL, ignore_errors=True)
@@ -1778,8 +1803,8 @@ def phase_durability(pins_4p, tag="19 durability"):
     the 4-process model (--no-trace) on each engine: a truncation at
     half its distinct states resumed, a SIGTERM drain of a CLI
     subprocess (exit 143) resumed, and on the resident engine a
-    completed checkpoint replayed with no kernel launch."""
-    import shutil
+    completed checkpoint replayed with no kernel launch.  The host-seen
+    engine's legs run the 3-process model (cut in depth for time)."""
     import signal
     from jaxmc_torch import drain
     from jaxmc_torch.engine.ckpt import load_checkpoint
@@ -1849,13 +1874,20 @@ def phase_durability(pins_4p, tag="19 durability"):
         if (r.distinct, r.generated, r.diameter) != PINS or not r.ok:
             raise AssertionError(f"{tag}: host snapshot resume != {PINS}")
 
-        half = pins_4p[0] // 2
         for engine in ("level", "host_seen", "resident"):
+            # the host-seen leg runs the 3-process model: the native
+            # store's single-threaded insert made its four 4-process
+            # runs about 50 s of this phase (cut in depth to keep the
+            # script inside 600 s with phase 21)
+            cfg, pins = (None, PINS) if engine == "host_seen" \
+                else (CFG_4P, pins_4p)
+            model = "3" if cfg is None else "4"
+            half = pins[0] // 2
             ck = os.path.join(DURABLE, f"{engine}.ck")
             stats = {}
             t0 = time.time()
             r1 = durable_engine(
-                "transfer_scaled.tla", CFG_4P, engine, stats,
+                "transfer_scaled.tla", cfg, engine, stats,
                 store_trace=False, max_states=half, checkpoint_path=ck,
                 checkpoint_every=0.0).run()
             torch.cuda.synchronize()
@@ -1863,24 +1895,25 @@ def phase_durability(pins_4p, tag="19 durability"):
             fin = ck + ".final"
             t0 = time.time()
             r2 = durable_engine(
-                "transfer_scaled.tla", CFG_4P, engine, {},
+                "transfer_scaled.tla", cfg, engine, {},
                 store_trace=False, resume_from=ck, checkpoint_path=fin,
                 final_checkpoint=True).run()
             torch.cuda.synchronize()
             w2 = time.time() - t0
             got = (r2.distinct, r2.generated, r2.diameter)
-            log(f"[{tag}] 4 processes {engine}: truncated at "
+            log(f"[{tag}] {model} processes {engine}: truncated at "
                 f"{r1.distinct} distinct in {w1:.3f}s ({_ck_note(stats)}); "
                 f"resumed to {got} in {w2:.3f}s")
-            if not r1.truncated or got != pins_4p or not r2.ok:
+            if not r1.truncated or got != pins or not r2.ok:
                 raise AssertionError(f"{tag}: {engine} resume {got} != "
-                                     f"{pins_4p}")
+                                     f"{pins}")
             # SIGTERM a CLI run at a level boundary: exit 143, resume hint
             ck2 = os.path.join(DURABLE, f"{engine}.drain.ck")
             t0 = time.time()
-            p = _cli([os.path.join(SPECS, "transfer_scaled.tla"), "--cfg",
-                      CFG_4P, "--no-trace", "--checkpoint", ck2,
-                      "--progress-every", "0"] + ENGINE_FLAGS[engine])
+            p = _cli([os.path.join(SPECS, "transfer_scaled.tla")]
+                     + (["--cfg", cfg] if cfg else [])
+                     + ["--no-trace", "--checkpoint", ck2,
+                        "--progress-every", "0"] + ENGINE_FLAGS[engine])
             try:
                 for line in p.stdout:
                     if line.startswith("Progress(3)"):
@@ -1891,20 +1924,21 @@ def phase_durability(pins_4p, tag="19 durability"):
                 if p.poll() is None:
                     p.kill()
             hint = f"resume with --resume {ck2}"
-            log(f"[{tag}] 4 processes {engine}: SIGTERM at Progress(3): "
+            log(f"[{tag}] {model} processes {engine}: SIGTERM at "
+                f"Progress(3): "
                 f"exit {p.returncode} after {time.time() - t0:.1f}s; "
                 f"{err.strip().splitlines()[-1] if err.strip() else ''}")
             if p.returncode != 143 or hint not in err:
                 raise AssertionError(f"{tag}: {engine} drain exit "
                                      f"{p.returncode}: {err}")
             stats = {}
-            r3 = durable_engine("transfer_scaled.tla", CFG_4P, engine,
+            r3 = durable_engine("transfer_scaled.tla", cfg, engine,
                                 stats, store_trace=False,
                                 resume_from=ck2).run()
             got = (r3.distinct, r3.generated, r3.diameter)
-            log(f"[{tag}] 4 processes {engine}: drained run resumed to "
-                f"{got}")
-            if got != pins_4p or not r3.ok:
+            log(f"[{tag}] {model} processes {engine}: drained run resumed "
+                f"to {got}")
+            if got != pins or not r3.ok:
                 raise AssertionError(f"{tag}: {engine} drain resume {got}")
             if engine == "resident":
                 eng = durable_engine("transfer_scaled.tla", CFG_4P, engine,
@@ -2059,11 +2093,283 @@ def phase_full_sort(pins_4p, tag="20 full sort"):
         os.environ.pop("JAXMC_LEVEL_RANKMERGE", None)
 
 
+# ---------------------------------------------------------------------------
+# phase 21: device observability, the backend layer and K12
+# ---------------------------------------------------------------------------
+
+def _obs_events(path):
+    """A trace's events without times, walls, process identity or the
+    watchdog's beats, the log lines' seconds masked: what profiling
+    must not change."""
+    import re
+    skip = {"t", "t0", "wall_s", "mono", "pid", "argv", "psid",
+            "parent_span", "tid", "env", "meta", "rss_bytes"}
+    out = []
+    with open(path) as fh:
+        for ln in fh:
+            e = json.loads(ln)
+            if e["ev"] in ("heartbeat", "stall"):
+                continue
+            e = {k: v for k, v in e.items() if k not in skip}
+            if "msg" in e:
+                e["msg"] = re.sub(r"[0-9.]+s\)$", "<t>)", e["msg"])
+                e["msg"] = re.sub(r"ETA [0-9.]+[smh]", "ETA <t>", e["msg"])
+            out.append(e)
+    return out
+
+
+def _obs_runs(runs, tag):
+    """CLI subprocesses with JAXMC_LEDGER=off, run side by side:
+    {name: args} -> {name: (stdout lines, wall)}.  Each must exit 0."""
+    t0 = time.time()
+    procs = {k: _cli(a, env={"JAXMC_LEDGER": "off"})
+             for k, a in runs.items()}
+    out = {}
+    try:
+        for k, p in procs.items():
+            so, se = p.communicate(timeout=600)
+            if p.returncode != 0:
+                raise AssertionError(f"{tag} {k}: exit {p.returncode}\n"
+                                     f"{so[-2000:]}\n{se[-2000:]}")
+            out[k] = (so.splitlines(), time.time() - t0)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return out
+
+
+def phase_obs(smi, tag="21 obs"):
+    """The observability layer and the backend layer through the CLI:
+    a transfer_scaled run under --backend auto with --metrics-out,
+    --trace and --profile (the pins, the oracle's gpu verdict, the
+    artifact and every trace line valid, bfs.level_step dispatched once
+    a level, the HBM model under the allocator's peak, the card in the
+    env block), the same run without --profile (same counts and trace),
+    the 4-process model profiled (the per-site table), `report` and
+    `top`, --profile=xla's trace directory, the oracle's --smoke, and
+    K12 against its twin: bit-exact, timed with L2 written over before
+    each call, beside its bound and the library sequence.  Returns
+    K12's table row."""
+    import io
+    from jaxmc_torch.backend import oracle
+    from jaxmc_torch.kernels import ops
+    from jaxmc_torch.obs.prof import attribution
+    from jaxmc_torch.obs.report import main as obs_main
+    from jaxmc_torch.obs.schema import validate_summary, validate_trace_event
+    t_phase = time.time()
+    d = OBS_DIR
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    try:
+        # the oracle on its own: the gpu probe live and chosen in time
+        t0 = time.time()
+        p = subprocess.run([sys.executable, "-m",
+                            "jaxmc_torch.backend.oracle", "--smoke"],
+                           cwd=ROOT, capture_output=True, text=True,
+                           timeout=120, env=dict(os.environ,
+                                                 JAXMC_LEDGER="off"))
+        for ln in p.stdout.splitlines():
+            log(f"[{tag}] {ln}")
+        if p.returncode != 0 or "ORACLE verdict gpu" not in p.stdout:
+            raise AssertionError(f"{tag}: oracle --smoke exit "
+                                 f"{p.returncode}: {p.stderr[-1000:]}")
+        # K12's launches, as the gpu probe's own process counted them
+        smoke_launches = [int(ln.rsplit("launches=", 1)[1])
+                          for ln in p.stdout.splitlines()
+                          if ln.startswith("ORACLE gpu live")
+                          and "launches=" in ln]
+        if smoke_launches != [2]:
+            raise AssertionError(f"{tag}: the --smoke gpu probe launched "
+                                 f"K12 {smoke_launches} times, not [2]")
+        log(f"[{tag}] oracle --smoke {time.time() - t0:.1f}s")
+
+        # the profiled run alone, so its site walls share the card with
+        # nothing; then the plain and --profile=xla runs side by side
+        # (their counts and traces do not depend on the walls)
+        spec = os.path.join(SPECS, "transfer_scaled.tla")
+        mx = os.path.join(d, "xla.json")
+        auto = {kind: [spec, "--backend", "auto", "--metrics-out",
+                       os.path.join(d, f"{kind}.json"), "--trace",
+                       os.path.join(d, f"{kind}.jsonl")] + extra
+                for kind, extra in (("profiled", ["--profile"]),
+                                    ("plain", []))}
+        cli = _obs_runs({"profiled": auto["profiled"]}, tag)
+        cli |= _obs_runs({"plain": auto["plain"],
+                          "xla": [os.path.join(SPECS, "constoy.tla"),
+                                  "--backend", "gpu", "--profile=xla",
+                                  "--metrics-out", mx]}, tag)
+        runs = {}
+        for kind in ("profiled", "plain"):
+            m, t = os.path.join(d, f"{kind}.json"), \
+                os.path.join(d, f"{kind}.jsonl")
+            out, wall = cli[kind]
+            with open(m) as fh:
+                summ = json.load(fh)
+            runs[kind] = (out, summ, _obs_events(t))
+            res = summ["result"]
+            got = (res["distinct"], res["generated"], res["diameter"])
+            choice = summ["gauges"].get("backend.oracle_choice")
+            log(f"[{tag}] {kind}: {got}, oracle {choice} "
+                f"({summ['gauges'].get('backend.oracle_wall_s')}s), "
+                f"{wall:.1f}s; {out[0]}")
+            if got != PINS or not res["ok"]:
+                raise AssertionError(f"{tag}: {kind} counts {got} != {PINS}")
+            if choice != "gpu" or not out[0].startswith(
+                    "-- backend oracle: gpu"):
+                raise AssertionError(f"{tag}: {kind} oracle verdict "
+                                     f"{choice}, not gpu")
+            validate_summary(summ, check_run=True)
+            with open(t) as fh:
+                for ln in fh:
+                    validate_trace_event(json.loads(ln))
+        out, summ, evs = runs["profiled"]
+        prof = summ["prof"]
+        disp = prof["sites"]["bfs.level_step"]["dispatches"]
+        if prof["mode"] != "wall" or disp != len(summ["levels"]):
+            raise AssertionError(f"{tag}: bfs.level_step {disp} "
+                                 f"dispatches, {len(summ['levels'])} levels")
+        hbm = prof["hbm"]
+        if hbm["peak_bytes"] > hbm["measured_peak_bytes"]:
+            raise AssertionError(f"{tag}: HBM model {hbm} above the "
+                                 f"measured peak")
+        env = summ["env"]
+        name, limit = (x.strip() for x in smi.rsplit(",", 1))
+        if (env.get("gpu_name"), env.get("gpu_power_limit"),
+                env.get("platform")) != (name, limit, "gpu"):
+            raise AssertionError(f"{tag}: env block {env} does not name "
+                                 f"the card ({smi})")
+        log(f"[{tag}] profiled: {disp} level steps for "
+            f"{len(summ['levels'])} levels; HBM model peak "
+            f"{hbm['peak_bytes']} B, measured {hbm['measured_peak_bytes']} "
+            f"B, ratio {hbm['peak_bytes'] / hbm['measured_peak_bytes']:.4f}"
+            f"; env {env.get('gpu_name')}, {env.get('gpu_power_limit')}")
+        p_out, p_summ, p_evs = runs["plain"]
+        strip = [ln for ln in out if "states/sec" not in ln
+                 and not ln.startswith("-- backend oracle")]
+        if strip != [ln for ln in p_out if "states/sec" not in ln
+                     and not ln.startswith("-- backend oracle")] \
+                or evs != p_evs or [
+                    {k: v for k, v in r.items() if k != "wall_s"}
+                    for r in summ["levels"]] != [
+                    {k: v for k, v in r.items() if k != "wall_s"}
+                    for r in p_summ["levels"]]:
+            raise AssertionError(f"{tag}: profile on and off differ")
+        log(f"[{tag}] profile off: the same counts, {len(evs)} trace "
+            f"events equal, stdout equal")
+        for cmd in ("report", "top"):
+            buf = io.StringIO()
+            rc = obs_main([cmd, os.path.join(d, "profiled.json")], out=buf)
+            if rc != 0:
+                raise AssertionError(f"{tag}: obs {cmd} exit {rc}")
+            for ln in buf.getvalue().splitlines()[:24]:
+                log(f"[{tag}] {cmd}| {ln}")
+
+        # the 4-process model profiled: the per-site attribution
+        m4 = os.path.join(d, "4p.json")
+        out, wall = _obs_runs({"4p": [spec, "--cfg", CFG_4P, "--profile",
+                                      "--metrics-out", m4]}, tag)["4p"]
+        with open(m4) as fh:
+            s4 = json.load(fh)
+        att = attribution(s4)
+        search = att["search_wall_s"]
+        for n, st in sorted(s4["prof"]["sites"].items(),
+                            key=lambda kv: -kv[1].get("wall_s", 0)):
+            log(f"[{tag}] 4p site {n}: {st['dispatches']} dispatches, "
+                f"wall {st.get('wall_s', 0):.4f}s, "
+                f"{100 * st.get('wall_s', 0) / search:.1f}% of the search "
+                f"wall {search:.4f}s, arg {st.get('arg_bytes', 0)} B, res "
+                f"{st.get('res_bytes', 0)} B, builds {st['recompiles']}")
+        dom = max(s4["prof"]["sites"].items(),
+                  key=lambda kv: kv[1].get("wall_s", 0))
+        h4 = s4["prof"]["hbm"]
+        log(f"[{tag}] 4p: {s4['result']['distinct']} / "
+            f"{s4['result']['generated']} / {s4['result']['diameter']}, "
+            f"{wall:.1f}s; dominant site {dom[0]}; attributed "
+            f"{att['share']}; phases "
+            + ", ".join(f"{ph['name']} {ph['wall_s']:.3f}s"
+                        for ph in s4["phases"])
+            + f"; HBM model peak {h4['peak_bytes']} B against measured "
+            f"{h4['measured_peak_bytes']} B "
+            f"({h4['peak_bytes'] / h4['measured_peak_bytes']:.4f}); "
+            f"buffers {h4['buffers']}")
+        if h4["peak_bytes"] > h4["measured_peak_bytes"]:
+            raise AssertionError(f"{tag}: 4p HBM model above measured")
+
+        # --profile=xla: a torch.profiler chrome trace
+        with open(mx) as fh:
+            xdir = json.load(fh)["prof"].get("xla_trace_dir")
+        files = os.listdir(xdir) if xdir and os.path.isdir(xdir) else []
+        size = sum(os.path.getsize(os.path.join(xdir, f)) for f in files)
+        log(f"[{tag}] --profile=xla: {xdir} holds {files}, {size} B")
+        if not size:
+            raise AssertionError(f"{tag}: --profile=xla left no trace")
+
+        # K12's launches on the main path: the gpu probe process of the
+        # profiled `--backend auto` run counted them
+        launches = runs["profiled"][1]["gauges"]["backend.oracle_probe"][
+            "gpu"].get("launches")
+        log(f"[{tag}] K12 launches in the --backend auto run's gpu probe: "
+            f"{launches}; in the --smoke run's: {smoke_launches[0]}")
+        if launches != 2:
+            raise AssertionError(f"{tag}: the auto run's probe launched K12 "
+                                 f"{launches} times, not 2")
+        # K12 against its twin, in this process, on the probe's keys
+        keys = oracle.probe_keys(DEVICE)
+        perm = ops.lsd_sort(keys)
+        sk = keys[perm].contiguous()
+        perm = perm.to(torch.int32)
+        args = (sk, perm, keys)
+        k = ops.oracle_probe(*args)
+        tw = ops.oracle_probe_twin(*args)
+        torch.cuda.synchronize()
+        err = _max_abs(k, tw)
+        N = keys.shape[0]
+        perm64 = perm.to(torch.int64)
+        col, key = sk[:, 0].contiguous(), keys[:, 0].contiguous()
+
+        def library():
+            lo = torch.searchsorted(col, key).to(torch.int32)
+            out = torch.zeros_like(sk).index_copy_(0, perm64, sk)
+            return out, lo, out.sum(dtype=torch.int64) + lo.sum(
+                dtype=torch.int64)
+        lib = library()
+        if _max_abs(lib[0], k[0]) or _max_abs(lib[1], k[1]) or \
+                int(ops._i32(lib[2])) != int(k[2]):
+            raise AssertionError(f"{tag}: searchsorted + index_copy_ "
+                                 f"yardstick disagrees with K12")
+        dev_ms = device_ms(lambda: ops.oracle_probe(*args), "oracle_probe",
+                           flush=True)
+        row = _row(
+            tag, "oracle_probe", "jaxmc_torch/kernels/csrc/oracle.cu",
+            "jaxmc/backend/oracle.py:72", launches, err,
+            cuda_time(lambda: ops.oracle_probe(*args), flush=True),
+            cuda_time(lambda: ops.oracle_probe_twin(*args), reps=5,
+                      flush=True),
+            # each row's 4 sorted words, its perm entry and keys[i, 0]
+            # read; its 4 words at out[perm] and lo written
+            N * 44,
+            # 14 search steps of about 7 integer operations and the
+            # 5-word checksum, per row
+            N * (14 * 7 + 5),
+            library_ms=cuda_time(library, flush=True),
+            note=f" [N={N}; 1 launch; L2 flushed before each call; device "
+                 f"time {dev_ms:.4f} ms; phase {time.time() - t_phase:.1f}s]")
+        return row
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def main() -> int:
     t_start = time.time()
+
+    def mark(n):
+        # the script's elapsed time after phase n (the time budget)
+        log(f"[time] through phase {n}: {time.time() - t_start:.1f}s")
+
     name, count, smi = phase_device()
     phase_build()
-    from jaxmc_torch import obs
     eng, got = capture_busiest_level(os.path.join(SPECS,
                                                  "transfer_scaled.cfg"), PINS)
     table = phase_kernels(eng, got)
@@ -2075,7 +2381,6 @@ def main() -> int:
         row["launches"] = (counts_fp if row["name"].endswith("_fp128")
                            else counts)[base]
     phase_verdicts()
-    obs.reset()
     counts_4p, launches_4p = phase_real_size()
     eng, got = capture_busiest_level(CFG_4P, counts_4p)
     rows_4p = phase_kernels(eng, got, "7 kernels", "@4p")
@@ -2087,6 +2392,7 @@ def main() -> int:
     # the 4-process run keys exactly, so K2's fp128 branch has no
     # launches there: its row is timed, not counted
     table += [r for r in rows_4p if "_fp128" not in r["name"]]
+    mark(7)
 
     eng, got, counts, _ = phase_reduction(
         "8 symmetry", "symtoy_scaled.tla", CFG_SYM, PINS_SYM,
@@ -2109,6 +2415,7 @@ def main() -> int:
     table += check_por(eng, got, counts)
     del eng, got
     phase_por_verdicts()
+    mark(10)
 
     counts, captured = phase_host_seen("11 host seen", "transfer_scaled.tla",
                                        CFG_4P, counts_4p)
@@ -2117,6 +2424,7 @@ def main() -> int:
     phase_host_seen("12 hs por", "msgstoy.tla", CFG_POR, PINS_HS_POR,
                     POR_PINS_HS, por=True)
     phase_hybrid()
+    mark(13)
 
     counts, captured, res_result = phase_resident(
         "14 resident", "transfer_scaled.tla", CFG_4P, counts_4p)
@@ -2132,10 +2440,16 @@ def main() -> int:
                    need=RES_KERNELS + ("seen_probe_por", "por_mask"))
     phase_resident_verdicts()
     phase_tiers(counts_4p)
+    mark(16)
     table.append(phase_props())
+    mark(17)
     table.append(phase_batch())
+    mark(18)
     phase_durability(counts_4p)
+    mark(19)
     table.append(phase_full_sort(counts_4p))
+    mark(20)
+    table.append(phase_obs(smi))
     log(f"[done] {time.time() - t_start:.1f}s")
     print(f"{smi}")
     print(json.dumps({"kernels": table}))

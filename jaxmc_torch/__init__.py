@@ -12,7 +12,12 @@ NVIDIA H100.  It imports torch and numpy, never jax and nothing of
             transition-kernel compiler (kernel2.py)
   kernels/  hand-written CUDA kernels (csrc/), their build, wrappers
             and plain PyTorch twins (ops.py)
-  backend/  the level engine, TorchExplorer (bfs.py)
+  backend/  the engines, TorchExplorer (bfs.py), batching (batch.py),
+            the seen tiers (tiers.py), the backend descriptor
+            (__init__.py) and the preflight oracle (oracle.py)
+  obs/      telemetry, the metrics artifact and trace, the profiler
+            and HBM model, the watchdog, and `python -m
+            jaxmc_torch.obs report|diff|timeline|top|history`
 """
 
 __version__ = "0.1.0"

@@ -47,7 +47,7 @@ import torch
 from .. import obs
 from ..compile.vspec import Bounds, CompileError, ModeError
 from ..engine.simulate import sample_states
-from .bfs import SENTINEL, TorchExplorer, _pow2_at_least
+from .bfs import SENTINEL, TorchExplorer, _pow2_at_least, _site
 
 
 class BatchIncompatible(Exception):
@@ -141,6 +141,12 @@ class BatchDispatcher:
             self._cv.notify_all()
 
     # ---- the superstep -------------------------------------------------
+    @_site("batch.vstep")
+    def _vstep(self, frontier_p, fcounts, cvecs):
+        """The batched step over the stacked member chunks (the
+        reference's jit(vmap(_hstep_core)))."""
+        return self.donor._hstep_batch(frontier_p, fcounts, cvecs)
+
     def _step(self, slot: int, frontier_p, fcount: int) -> Dict[str, Any]:
         with self._cv:
             self._pending[slot] = (np.asarray(frontier_p, np.int32),
@@ -176,7 +182,7 @@ class BatchDispatcher:
             dev = self.donor.device
             frontier_p = torch.as_tensor(
                 fr.reshape(self.B * self.CH, self.PW), device=dev)
-            out = self.donor._hstep_batch(frontier_p, fc, self._cvecs)
+            out = self._vstep(frontier_p, fc, self._cvecs)
             offs = [int(x) for x in out["offsets"].cpu().tolist()]
         except Exception as ex:  # noqa: BLE001 — a device failure lands
             # on every waiting member

@@ -160,6 +160,12 @@ def _por_mask_np(found, cvalid, inst_arm, arm_safe, A, FC):
     return keep, n_ample, n_expanded
 
 
+def _site(name: str):
+    """Register the decorated engine step as the named dispatch site of
+    the profiler (obs/prof.py), under the reference's site name."""
+    return lambda fn: obs.prof_wrap(name, fn)
+
+
 def resolve_device(device) -> torch.device:
     """`None` means the card.  Without CUDA that is an error that names
     the explicit CPU choice — the engine never falls back by itself."""
@@ -604,6 +610,12 @@ class TorchExplorer:
                   + ("-view" if self.view_fn is not None
                      else ("-packed" if not self.plan.identity else "")))
         tel.gauge("backend.device", str(self.device))
+        # the reference's device-layer gauges; its donation rule (on
+        # for accelerators) is what the in-place updates give here
+        platform = "gpu" if self.device.type == "cuda" else "cpu"
+        tel.gauge("device.donation", platform != "cpu")
+        tel.gauge("backend.platform", platform)
+        tel.gauge("backend.profile_ns", platform)
 
     @staticmethod
     def _refuse_modes(model: Model, resident: bool, host_seen: bool) -> None:
@@ -701,6 +713,7 @@ class TorchExplorer:
         return dict(new_count=counts[0], nk_sidx=new_cidx, seen2=seen2,
                     seen_count2=counts[1])
 
+    @_site("bfs.host_keys")
     def _host_keys(self, rows_np: np.ndarray):
         """(keys, packed, pack_ovf) over unpacked numpy rows — the init
         boundary path.  numpy in, numpy out."""
@@ -735,6 +748,7 @@ class TorchExplorer:
 
     # ---- one BFS level ----
 
+    @_site("bfs.level_step")
     def level_step(self, seen, seen_count: int, frontier_p, fcount: int):
         """One fused level over seen [SC, K] (sorted valid prefix of
         seen_count rows) and frontier_p [FC, PW] (fcount valid rows).
@@ -1056,7 +1070,8 @@ class TorchExplorer:
 
         self.log(f"Progress({depth}): {generated} states generated, "
                  f"{distinct} distinct states found, "
-                 f"{fcount} states left on queue.")
+                 f"{fcount} states left on queue."
+                 f"{obs.eta_suffix(distinct)}")
         last_progress = last_ck = time.time()
         while fcount > 0:
             # chaos sites: a crash, or a terminal device failure,
@@ -1250,7 +1265,8 @@ class TorchExplorer:
                 last_progress = now
                 self.log(f"Progress({depth}): {generated} states generated, "
                          f"{distinct} distinct states found, "
-                         f"{fcount} states left on queue.")
+                         f"{fcount} states left on queue."
+                         f"{obs.eta_suffix(distinct)}")
 
         if graph is not None:
             viol = self._check_live(graph, warnings)
@@ -1555,6 +1571,7 @@ class TorchExplorer:
                                                 cidx, cvalid)
         self._fold(lv, part, pack_ovf, por, keys_c, rows_c, base)
 
+    @_site("bfs.resident_run")
     def _res_level(self, seen, seen_count: int, frontier, fcount: int,
                    caps: Dict[str, int], CH: int):
         """One resident level (bfs.py:2307-2516): ceil(fcount / CH) chunk
@@ -1771,7 +1788,8 @@ class TorchExplorer:
                      ST_OVF_ACC: "AccCap", ST_OVF_VC: "VC"}
         self.log(f"Progress({depth}): {generated} states generated, "
                  f"{distinct} distinct states found, "
-                 f"{fcount} states left on queue.")
+                 f"{fcount} states left on queue."
+                 f"{obs.eta_suffix(distinct)}")
         last_progress = last_ck = time.time()
         while True:
             # chaos sites: crash / device failure entering a level; then
@@ -1912,7 +1930,8 @@ class TorchExplorer:
                     last_progress = now
                     self.log(f"Progress({depth}): {generated} states "
                              f"generated, {distinct} distinct states "
-                             f"found, {fcount} states left on queue.")
+                             f"found, {fcount} states left on queue."
+                             f"{obs.eta_suffix(distinct)}")
                 if self.checkpoint_path and \
                         now - last_ck >= self.checkpoint_every:
                     last_ck = now
@@ -1992,6 +2011,7 @@ class TorchExplorer:
         t.spill(np.ascontiguousarray(seen_np[:count, 1:]))
         obs.current().counter("tier.spilled_keys", int(count))
 
+    @_site("bfs.packed_keys")
     def _packed_keys(self, packed_np: np.ndarray) -> np.ndarray:
         """Dedup-key DATA words ([n, K-1], validity lane stripped) of a
         block of PACKED rows (K1, then K2): the cold-tier probe basis for
@@ -2133,6 +2153,7 @@ class TorchExplorer:
                 self._set_const_lanes(None)
         return en, aok, ov, keys, cand, pack_ovf, inv_ok, explore
 
+    @_site("bfs.hstep")
     def _hstep(self, frontier_p: torch.Tensor, fcount: int) -> dict:
         """One chunk of the host-seen step (bfs._hstep_core, the fused
         path of _get_hstep) with this model's lifted-constant vector:
@@ -2245,7 +2266,8 @@ class TorchExplorer:
                                         graph, frontier_sids))
 
         self.log(f"Progress({depth}): {generated} generated, "
-                 f"{distinct} distinct, {len(frontier_np)} on queue.")
+                 f"{distinct} distinct, {len(frontier_np)} on "
+                 f"queue.{obs.eta_suffix(distinct)}")
         last_progress = last_ck = time.time()
         # cross-model batching: a batch member's chunk step goes through
         # the shared dispatcher (backend/batch.py) instead of its own —
@@ -2512,7 +2534,7 @@ class TorchExplorer:
                 last_progress = now
                 self.log(f"Progress({depth}): {generated} generated, "
                          f"{distinct} distinct, {len(frontier_np)} on "
-                         f"queue.")
+                         f"queue.{obs.eta_suffix(distinct)}")
 
         if graph is not None:
             viol = self._check_live(graph, warnings)
@@ -2929,7 +2951,8 @@ class TorchExplorer:
     # what a follower shares with its donor: the layout and every
     # compiled unit (and the device they live on)
     _DONOR_SHARED = (
-        "device", "twins", "bounds", "layout", "kc", "plan", "pt",
+        "device", "twins", "bounds", "layout", "kc",
+        "plan", "pt",
         "compiled", "actions", "arms", "_ca_arm", "fb_arms", "fb_invs",
         "fb_cons", "inv_fns", "constraint_fns", "canon", "_sym_fallback",
         "sym_identity", "view_fn", "view_width", "refiners", "unrefined",

@@ -8,7 +8,8 @@
         [--seq-cap N] [--grow-cap N] [--kv-cap N] [--quiet]
         [--progress-every S] [--checkpoint F [--checkpoint-every S]]
         [--resume F] [--backend interp [--workers N]]
-        [--no-device-fallback]
+        [--backend auto|cpu|gpu|tpu] [--no-device-fallback]
+        [--metrics-out F] [--trace F] [--profile [wall|xla]]
 
 Prints the same TLC-style progress and final lines as `jaxmc check
 --backend jax`.  The search runs on the CUDA card unless --device cpu
@@ -35,6 +36,14 @@ instead of the device (engine/explore.py, or engine/parallel.py with
 --workers N > 1), which resume a device run's F.host.  A terminal
 device failure exits 2: the port never demotes a run to the CPU
 (--no-device-fallback is accepted and is the only behaviour).
+
+--backend cpu|gpu pins the device engine to that platform (gpu without
+a CUDA device exits 2 naming --device cpu; tpu exits 2: the port has
+none; a --backend that contradicts --device exits 2); --backend auto
+runs the preflight oracle (backend/oracle.py) and prints its verdict,
+the one route on which the port chooses the CPU by itself.
+--metrics-out, --trace and --profile write the reference's telemetry
+artifacts (obs/).
 
 Exit codes: 0 no error found, 1 a violation, 2 a refused mode, an
 uncompilable spec, a damaged or foreign checkpoint, a device failure or
@@ -75,25 +84,121 @@ def interp_engine(model, cfg, log):
 
 
 def cmd_check(args) -> int:
-    from . import drain
-    from .obs import Logger
+    from . import drain, obs
 
     t0 = time.time()
-    log = Logger(quiet=args.quiet)
+    # telemetry is a PARALLEL channel: stdout stays byte-identical; a
+    # NullTelemetry (every method a no-op) serves runs that asked for no
+    # artifact, so the engines' instrumentation costs nothing
+    want_tel = bool(args.metrics_out or args.trace or args.profile)
+    tel = obs.Telemetry(
+        trace_path=args.trace,
+        meta={"command": "check", "backend": args.backend or "torch",
+              "spec": args.spec, "cfg": args.cfg,
+              "argv": list(sys.argv[1:]),
+              "env": obs.environment_meta()}) if want_tel \
+        else obs.NullTelemetry()
+    if args.profile:
+        # per-dispatch profiling (obs/prof.py): wall mode waits on each
+        # site's device work and sums its bytes; a sync cannot change
+        # values, so counts and traces stay bit-identical
+        tel.prof.mode = args.profile
+    log = obs.Logger(tel, quiet=args.quiet)
+    # the watchdog names a wedged phase on stderr and in the trace while
+    # it hangs; start() is a no-op on the NullTelemetry
+    wd = obs.Watchdog(tel).start()
     # SIGTERM asks for a drain: the engine checkpoints at its next level
     # boundary and returns a drained result (exit 143 below).  The
     # previous handler comes back when the command returns, so a caller
     # that runs `main` in its own process keeps its own
     prev = signal.getsignal(signal.SIGTERM)
     installed = drain.install()
+    capture = _start_xla_trace(args, tel) if args.profile == "xla" \
+        else None
     try:
-        return _check(args, log, t0)
+        with obs.use(tel):
+            return _check(args, tel, log, t0)
     finally:
+        if capture is not None:
+            _stop_xla_trace(capture)
+        wd.stop()
+        tel.close()
         if installed:
             signal.signal(signal.SIGTERM, prev)
 
 
-def _check(args, log, t0) -> int:
+def _start_xla_trace(args, tel):
+    """--profile=xla: capture the whole run with torch.profiler to a
+    named directory (JAXMC_XLA_TRACE_DIR, else METRICS_OUT.xla, else a
+    fresh temp dir), written as a chrome trace when the run ends.  A
+    profiler that will not start degrades to wall-mode profiling with a
+    warning, as the reference's does.  Returns (profiler, dir) or
+    None."""
+    tdir = os.environ.get("JAXMC_XLA_TRACE_DIR") or \
+        (args.metrics_out + ".xla" if args.metrics_out else None)
+    try:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        if tdir is None:
+            import tempfile
+            tdir = tempfile.mkdtemp(prefix="jaxmc-xla-")
+        os.makedirs(tdir, exist_ok=True)
+        acts = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.start()
+    except Exception as e:  # noqa: BLE001 — profiling is best-effort
+        print(f"warning: --profile=xla trace capture unavailable "
+              f"({e}); continuing with wall-mode profiling",
+              file=sys.stderr)
+        return None
+    tel.prof.xla_trace_dir = tdir
+    print(f"-- profile: xla trace capture -> {tdir}", file=sys.stderr)
+    return prof, tdir
+
+
+def _stop_xla_trace(capture) -> None:
+    prof, tdir = capture
+    try:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(tdir, "trace.json"))
+    except Exception as e:  # noqa: BLE001 — never mask the run's exit
+        print(f"warning: --profile=xla trace export failed ({e})",
+              file=sys.stderr)
+
+
+def _metrics_error(args, tel, error: str) -> None:
+    if args.metrics_out:
+        tel.write_metrics(args.metrics_out,
+                          result={"ok": False, "distinct": 0,
+                                  "generated": 0, "diameter": 0,
+                                  "truncated": False, "error": error})
+
+
+def _result_block(res) -> dict:
+    """The metrics artifact's `result` block, the reference's fields."""
+    result = {"ok": res.ok, "distinct": res.distinct,
+              "generated": res.generated, "diameter": res.diameter,
+              "truncated": bool(res.truncated),
+              "wall_s": round(res.wall_s, 6),
+              "warnings": list(res.warnings)}
+    if res.drained:
+        result["drained"] = True
+    result["seen_mode"] = getattr(res, "seen_mode", "exact")
+    if getattr(res, "collision_p", None) is not None:
+        result["collision_p"] = res.collision_p
+    if getattr(res, "trunc_reason", None):
+        result["trunc_reason"] = res.trunc_reason
+    if getattr(res, "tiers", None):
+        result["tiers"] = res.tiers
+    if res.violation is not None:
+        result["violation"] = {"kind": res.violation.kind,
+                               "name": res.violation.name}
+    return result
+
+
+def _check(args, tel, log, t0) -> int:
     from . import drain, faults
     from .backend.bfs import TorchExplorer
     from .compile.vspec import Bounds, CompileError, ModeError
@@ -108,47 +213,63 @@ def _check(args, log, t0) -> int:
                             "device, host_seen keeps it in the native "
                             "host store")
         cfg = SessionConfig.from_args(args)
-        sess = CheckSession(cfg)
+        sess = CheckSession(cfg, tel=tel, log=log)
         if sess.parse() == "assumes":
-            return sess.run_assumes()
+            rc = sess.run_assumes()
+            if args.metrics_out:
+                tel.write_metrics(args.metrics_out,
+                                  result={"ok": rc == 0, "distinct": 0,
+                                          "generated": 0, "diameter": 0,
+                                          "truncated": False,
+                                          "mode": "assumes"})
+            return rc
         if interp:
             eng = interp_engine(sess.model, cfg, log)
+            with tel.span("search", workers=getattr(eng, "workers", 1)):
+                res = eng.run()
         else:
-            eng = TorchExplorer(sess.model, log=log,
-                                max_states=args.max_states,
-                                store_trace=not args.no_trace,
-                                progress_every=args.progress_every,
-                                bounds=Bounds(seq_cap=args.seq_cap,
-                                              grow_cap=args.grow_cap,
-                                              kv_cap=args.kv_cap),
-                                sample_cfg=tuple(args.sample),
-                                seen_mode=args.seen, device=args.device,
-                                por=args.por, host_seen=args.host_seen,
-                                resident=args.resident, chunk=args.chunk,
-                                seen_cap=args.seen_cap,
-                                spill_dir=args.seen_spill,
-                                checkpoint_path=args.checkpoint,
-                                checkpoint_every=args.checkpoint_every,
-                                resume_from=args.resume)
-        try:
-            res = eng.run()
-        except (faults.FaultInjected, RuntimeError, OSError, MemoryError,
-                ConnectionError) as e:
-            if interp:
-                raise
-            # a terminal device failure: no demotion to the CPU engine
-            # (ROADMAP A.14), so the run ends here with one named line
-            print(f"error: terminal device failure ({type(e).__name__}: "
-                  f"{e}); the torch engine does not fall back to the "
-                  f"CPU", file=sys.stderr)
-            return 2
+            device = sess.device_init()
+            with tel.span("engine_build"):
+                eng = TorchExplorer(sess.model, log=log,
+                                    max_states=args.max_states,
+                                    store_trace=not args.no_trace,
+                                    progress_every=args.progress_every,
+                                    bounds=Bounds(seq_cap=args.seq_cap,
+                                                  grow_cap=args.grow_cap,
+                                                  kv_cap=args.kv_cap),
+                                    sample_cfg=tuple(args.sample),
+                                    seen_mode=args.seen, device=device,
+                                    por=args.por, host_seen=args.host_seen,
+                                    resident=args.resident,
+                                    chunk=args.chunk,
+                                    seen_cap=args.seen_cap,
+                                    spill_dir=args.seen_spill,
+                                    checkpoint_path=args.checkpoint,
+                                    checkpoint_every=args.checkpoint_every,
+                                    resume_from=args.resume)
+            try:
+                with tel.span("search"):
+                    res = eng.run()
+            except (faults.FaultInjected, RuntimeError, OSError,
+                    MemoryError, ConnectionError) as e:
+                # a terminal device failure: no demotion to the CPU
+                # engine (ROADMAP A.14), so the run ends here with one
+                # named line
+                print(f"error: terminal device failure "
+                      f"({type(e).__name__}: {e}); the torch engine does "
+                      f"not fall back to the CPU", file=sys.stderr)
+                _metrics_error(args, tel, f"terminal device failure: "
+                                          f"{type(e).__name__}: {e}")
+                return 2
     except ModeError as e:
         print(f"error: {e}", file=sys.stderr)
+        _metrics_error(args, tel, str(e))
         return 2
     except CompileError as e:
         print(f"error: this spec is outside the torch backend's "
               f"compilable subset ({e}); re-run with jaxmc --backend "
               f"interp", file=sys.stderr)
+        _metrics_error(args, tel, str(e))
         return 2
     wall = time.time() - t0
     backend = "interp" if interp else f"torch:{eng.device}"
@@ -157,6 +278,12 @@ def _check(args, log, t0) -> int:
           f"backend={backend}, wall {wall:.2f}s)")
     for w in res.warnings:
         print(f"Warning: {w}")
+    if args.metrics_out:
+        mst = getattr(sess.model, "_memo", None)
+        if mst is not None:
+            tel.gauge("memo.hits", mst.hits)
+            tel.gauge("memo.misses", mst.misses)
+        tel.write_metrics(args.metrics_out, result=_result_block(res))
     if res.ok:
         if res.drained:
             # checkpointed at a level boundary and resumable: never a 0,
@@ -179,6 +306,7 @@ def _check(args, log, t0) -> int:
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from .backend import BACKEND_CHOICES
     from .compile.vspec import Bounds
     p = argparse.ArgumentParser(prog="python -m jaxmc_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -240,15 +368,41 @@ def build_parser() -> argparse.ArgumentParser:
                    help="resume a run from a checkpoint (the engine and "
                         "its flags must match the writing run's)")
     c.add_argument("--backend", default=None,
-                   choices=("torch", "interp", "jax", "auto", "cpu", "gpu",
-                            "tpu"),
+                   choices=("torch",) + BACKEND_CHOICES,
                    help="interp runs the interpreter engines on the host "
-                        "(--workers N); any other value, or none, runs "
-                        "the device engine")
+                        "(--workers N); cpu|gpu run the device engine "
+                        "pinned to that platform (tpu: refused, the port "
+                        "has none); auto probes the platforms with the "
+                        "preflight oracle and runs on the best live one "
+                        "(verdict printed and stored as "
+                        "backend.oracle_choice); torch, jax or none run "
+                        "the device engine on --device")
     c.add_argument("--workers", type=int, metavar="N", default=None,
                    help="interp backend: worker processes (default: "
                         "JAXMC_WORKERS, else min(cpu_count, 8); 1 = the "
                         "serial engine)")
+    c.add_argument("--metrics-out", default=None, metavar="FILE",
+                   help="write an end-of-run JSON metrics artifact: "
+                        "phase wall times, per-level BFS counts, "
+                        "counters, gauges, the env fingerprint and the "
+                        "result block (schema jaxmc.metrics/4, "
+                        "obs/schema.py; render with python -m "
+                        "jaxmc_torch.obs report|diff|top)")
+    c.add_argument("--trace", default=None, metavar="FILE",
+                   help="stream telemetry events as JSONL while the run "
+                        "is live (span_open/span/level/log plus watchdog "
+                        "heartbeat/stall beats)")
+    c.add_argument("--profile", nargs="?", const="wall", default=None,
+                   choices=("wall", "xla"),
+                   help="per-dispatch device profiling (obs/prof.py): "
+                        "synchronised wall, bytes and kernel builds per "
+                        "named dispatch site plus the device-memory "
+                        "model, stamped into --metrics-out as the prof{} "
+                        "block (render with python -m jaxmc_torch.obs "
+                        "top).  --profile=xla also captures a "
+                        "torch.profiler chrome trace to "
+                        "JAXMC_XLA_TRACE_DIR (default METRICS_OUT.xla/). "
+                        "Profiling never changes counts or traces")
     c.add_argument("--no-device-fallback", action="store_true",
                    help="exit on a terminal device failure (the port "
                         "never falls back to the CPU, so this is always "

@@ -24,7 +24,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
 BUILD_ROOT = os.path.join(HERE, "_build")
 SOURCES = ("unpack", "keys", "probe", "merge", "canon", "por", "hstep",
-           "resident", "batch", "fullsort")
+           "resident", "batch", "fullsort", "oracle")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -61,6 +61,7 @@ ARGTYPES = {
     "jmc_fullsort_count": [_P] * 4 + [_I64, _I, _P],
     "jmc_fullsort_scan": [_P] * 5 + [_I, _P],
     "jmc_fullsort_scatter": [_P] * 7 + [_I64, _I, _I64, _I64, _P],
+    "jmc_oracle_probe": [_P] * 6 + [_I, _I, _P],
 }
 # return types other than the cudaError_t (an int) of a launch
 RESTYPE = {"jmc_canon_threads": _I64}
@@ -78,10 +79,15 @@ ENTRY = {"unpack": ["jmc_unpack_rows"], "keys": ["jmc_keys_of"],
          "batch": ["jmc_batch_threads", "jmc_batch_count", "jmc_batch_scan",
                    "jmc_batch_scatter"],
          "fullsort": ["jmc_fullsort_threads", "jmc_fullsort_count",
-                      "jmc_fullsort_scan", "jmc_fullsort_scatter"]}
+                      "jmc_fullsort_scan", "jmc_fullsort_scatter"],
+         "oracle": ["jmc_oracle_probe"]}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# nvcc builds run by this process (one per source compiled): the
+# profiler charges a build made inside a dispatch to that site's
+# `recompiles` (obs/prof.py)
+BUILDS = 0
 # ptxas resource lines per source, from the build that made the library
 PTXAS: Dict[str, List[str]] = {}
 
@@ -120,6 +126,7 @@ def _ptxas_lines(text: str) -> List[str]:
 def build_all() -> Dict[str, str]:
     """Compile every source not yet built for this digest, one nvcc
     process each, all started together.  Returns {source: .so path}."""
+    global BUILDS
     out_dir = build_dir()
     os.makedirs(out_dir, exist_ok=True)
     paths = {n: os.path.join(out_dir, f"lib{n}.so") for n in SOURCES}
@@ -132,6 +139,7 @@ def build_all() -> Dict[str, str]:
                     PTXAS[n] = _ptxas_lines(fh.read())
         return paths
     nvcc = nvcc_path()
+    BUILDS += len(todo)
     procs = {}
     for n in todo:
         tmp = os.path.join(out_dir, f"lib{n}.tmp{os.getpid()}.so")

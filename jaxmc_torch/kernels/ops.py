@@ -46,6 +46,9 @@ too, which is how the kernels are compared with them on the card.
                     first-of-run new mask and the two stable
                     compactions (new candidate indices, merged seen
                     table)
+  oracle_probe  K12 backend/oracle.py `probe` after its sort: the rank
+                    scatter, the 14-step lower bound and the wrapped
+                    int32 checksum of the preflight probe
 """
 
 from __future__ import annotations
@@ -72,7 +75,7 @@ LAUNCHES: Dict[str, int] = {"unpack_rows": 0, "keys_of": 0,
                             "resident_compact_explore": 0,
                             "resident_compact_edges": 0,
                             "resident_fold": 0, "batch_epilogue": 0,
-                            "fullsort_dedup": 0}
+                            "fullsort_dedup": 0, "oracle_probe": 0}
 # arms the device POR filter takes (por.cu kMaxWords * 64)
 POR_MAX_ARMS = 1024
 
@@ -1187,3 +1190,72 @@ def fullsort_dedup(skeys: torch.Tensor, sflag: torch.Tensor,
             _stream())
         _launch("fullsort_dedup", rc)
     return new_cidx, seen2, counts
+
+
+# ---------------------------------------------------------------------------
+# K12 oracle_probe
+# ---------------------------------------------------------------------------
+
+# the reference probe's fixed trip count (jaxmc/backend/oracle.py:87)
+PROBE_STEPS = 14
+
+
+def oracle_probe_twin(sk: torch.Tensor, perm: torch.Tensor,
+                      keys: torch.Tensor, steps: int = PROBE_STEPS):
+    """The reference probe after its sort, in torch: over the sorted
+    keys sk [N, 4], their pre-sort row indices perm [N] and the unsorted
+    keys [N, 4], `out = zeros.at[perm].set(sk)`, a `steps`-step lower
+    bound of keys[:, 0] in sk[:, 0] with clip(mid, 0, N-1) and no
+    lo < hi guard, and `out.sum() + lo.sum()` wrapped to int32.
+
+    Returns (out [N, 4] int32, lo [N] int32, value 0-d int32)."""
+    N = sk.shape[0]
+    dev = sk.device
+    out = torch.zeros_like(sk)
+    out.index_copy_(0, perm.to(torch.int64), sk)
+    col, key = sk[:, 0], keys[:, 0]
+    lo = torch.zeros(N, dtype=torch.int32, device=dev)
+    hi = torch.full((N,), N, dtype=torch.int32, device=dev)
+    for _ in range(steps):
+        mid = torch.div(lo + hi, 2, rounding_mode="floor")
+        lt = col[mid.clamp(0, max(N - 1, 0)).to(torch.int64)] < key
+        lo = torch.where(lt, mid + 1, lo)
+        hi = torch.where(lt, hi, mid)
+    value = _i32(out.to(torch.int64).sum() + lo.to(torch.int64).sum())
+    return out, lo, value
+
+
+def oracle_probe(sk: torch.Tensor, perm: torch.Tensor, keys: torch.Tensor,
+                 steps: int = PROBE_STEPS):
+    """K12: oracle_probe_twin's function in one launch; perm int32.
+    Bit-equal to the twin on out, lo and value."""
+    _check(sk, "oracle_probe.sk", 2)
+    _check(perm, "oracle_probe.perm", 1)
+    _check(keys, "oracle_probe.keys", 2)
+    N = sk.shape[0]
+    if sk.shape[1] != 4 or tuple(keys.shape) != (N, 4) \
+            or perm.shape[0] != N:
+        raise ValueError(f"oracle_probe: sk {tuple(sk.shape)}, keys "
+                         f"{tuple(keys.shape)}, perm {tuple(perm.shape)}: "
+                         f"expected [N, 4], [N, 4] and [N]")
+    if N >= 2**30:
+        raise ValueError(f"oracle_probe: {N} rows, the kernel's indices "
+                         f"are int32")
+    if sk.device.type == "cpu":
+        return oracle_probe_twin(sk, perm, keys, steps)
+    _same_device("oracle_probe", sk, perm, keys)
+    from . import build
+    lib = build.library("oracle")
+    dev = sk.device
+    # zeros, as the reference's scatter target: rows no perm entry
+    # names stay 0
+    out = torch.zeros_like(sk)
+    lo = torch.empty((N,), dtype=torch.int32, device=dev)
+    acc = torch.zeros((), dtype=torch.int32, device=dev)
+    if N:
+        rc = lib.jmc_oracle_probe(_ptr(sk), _ptr(perm), _ptr(keys),
+                                  _ptr(out), _ptr(lo), _ptr(acc),
+                                  ctypes.c_int(N), ctypes.c_int(int(steps)),
+                                  _stream())
+        _launch("oracle_probe", rc)
+    return out, lo, acc

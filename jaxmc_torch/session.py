@@ -1,12 +1,16 @@
 """Model loading, the run configuration and the ASSUME-only mode of the
 port's entry points (the port of jaxmc/session.py: load_model,
-SessionConfig with its signature fields, batch_profile, and the parse
-and run_assumes stages of CheckSession).
+SessionConfig with its signature fields, batch_profile, and the parse,
+run_assumes and device-init parts of CheckSession).
 
-`CheckSession` holds only the two stages the `check` command needs
-before an engine exists: `parse` (a bound model, or TLC's No-Behavior-
-Spec mode when the cfg names neither SPECIFICATION nor INIT) and
-`run_assumes`.  The engine stages stay in cli.py.
+`CheckSession` holds what the `check` command needs before an engine
+exists: `parse` (a bound model, or TLC's No-Behavior-Spec mode when the
+cfg names neither SPECIFICATION nor INIT), `run_assumes`, and
+`device_init` (the --backend selection: a pinned platform, or the
+preflight oracle's verdict under auto, resolved to a torch device).
+The engine stages stay in cli.py.  Every stage reports spans into the
+recorder the session was built with (obs.current() unless one is
+passed).
 """
 
 from __future__ import annotations
@@ -15,7 +19,8 @@ import os
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
-from .compile.vspec import Bounds
+from . import obs
+from .compile.vspec import Bounds, ModeError
 
 
 def read_text(path: str) -> str:
@@ -201,10 +206,13 @@ def batch_profile(cfg: SessionConfig,
 
 
 class CheckSession:
-    """The parse stage of a check, and TLC's No-Behavior-Spec mode."""
+    """The parse stage of a check, TLC's No-Behavior-Spec mode and the
+    device selection."""
 
-    def __init__(self, cfg: SessionConfig):
+    def __init__(self, cfg: SessionConfig, tel=None, log=None):
         self.cfg = cfg
+        self.tel = tel if tel is not None else obs.current()
+        self.log = log if log is not None else obs.Logger(quiet=True)
         self.kind: Optional[str] = None   # "model" | "assumes"
         self.model = None
         self.cfg_path: Optional[str] = None
@@ -224,8 +232,12 @@ class CheckSession:
             if not c.specification and not c.init:
                 self.kind = "assumes"
                 return self.kind
-        self.model = load_model(cfg.spec, cfg.cfg, cfg.no_deadlock,
-                                cfg.include)
+        with self.tel.span("load", spec=cfg.spec):
+            self.model = load_model(cfg.spec, cfg.cfg, cfg.no_deadlock,
+                                    cfg.include)
+        # a search-progress estimator on the recorder: with an analyze
+        # bound every progress line carries a fraction-explored and ETA
+        obs.attach_estimator(self.tel, self.model)
         self.kind = "model"
         return self.kind
 
@@ -264,3 +276,62 @@ class CheckSession:
               f"{'s' if len(mod.assumes) != 1 else ''} checked. "
               "No error has been found.")
         return 0
+
+    # ---- device selection (the reference's resolve_platform and
+    # device_init, jaxmc/session.py:420-495) ----
+    def resolve_platform(self) -> Optional[str]:
+        """The platform --backend names: cpu|gpu outright; auto asks the
+        preflight oracle (backend/oracle.py) and logs its verdict; tpu
+        is refused (the port has none); torch, jax or none: None, the
+        device --device names."""
+        b = self.cfg.backend
+        if b == "tpu":
+            raise ModeError("--backend tpu: the torch port has no TPU "
+                            "platform; use --backend gpu, cpu or auto")
+        if b in ("cpu", "gpu"):
+            return b
+        if b == "auto":
+            from .backend.oracle import preflight
+            with self.tel.span("preflight_oracle"):
+                v = preflight(tel=self.tel)
+            if v["platform"] is None:
+                errs = "; ".join(f"{p}: {pr.get('error')}"
+                                 for p, pr in v["probes"].items())
+                raise RuntimeError(
+                    f"backend oracle found no live platform ({errs})")
+            self.log(f"-- backend oracle: {v['platform']} "
+                     f"({v['reason']}; {v['wall_s']}s)")
+            return v["platform"]
+        return None
+
+    def device_init(self):
+        """Resolve --backend and --device to the torch device the engine
+        runs on, and initialise it inside the `device_init` span (a hung
+        driver is attributed there).  The card is the default and
+        --backend gpu never falls back: without CUDA either exits 2
+        naming --device cpu; only --backend auto chooses the CPU by
+        itself, and says so."""
+        import torch
+        from .backend.bfs import resolve_device
+        cfg, tel = self.cfg, self.tel
+        platform = self.resolve_platform()
+        want = {"cpu": "cpu", "gpu": "cuda", None: None}[platform]
+        if want is not None and cfg.device is not None \
+                and cfg.device != want:
+            raise ModeError(f"--backend {cfg.backend} runs on "
+                            f"{platform}, which contradicts --device "
+                            f"{cfg.device}")
+        if platform == "gpu" and not torch.cuda.is_available():
+            raise ModeError("--backend gpu needs a CUDA device and torch "
+                            "sees none; run on the CPU with --device cpu")
+        with tel.span("device_init", platform=platform or "default",
+                      attempt=0):
+            device = resolve_device(want or cfg.device)
+            if device.type == "cuda":
+                torch.cuda.init()
+            tel.gauge("device.platform",
+                      "gpu" if device.type == "cuda" else "cpu")
+            tel.gauge("device.count", torch.cuda.device_count()
+                      if device.type == "cuda" else 1)
+            tel.set_meta(env=obs.environment_meta(device))
+        return device

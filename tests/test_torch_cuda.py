@@ -1,9 +1,10 @@
-"""The CUDA kernels of the torch port (K1-K11) against their plain
+"""The CUDA kernels of the torch port (K1-K12) against their plain
 PyTorch twins, on the card, at the shapes the engines give them, the
 level engine on the card against the corpus pins, with SYMMETRY, VIEW
 and --por among them, the host-seen engine on the card against the
 same run on the CPU, PROPERTYs on both engines, a batch cohort, the
-full-sort step and checkpoint/resume on the card against the CPU.
+full-sort step, checkpoint/resume on the card against the CPU, and the
+preflight probe (K12) and the oracle's gpu verdict.
 
 Needs a CUDA card and nvcc; elsewhere every test skips with the reason.
 Run on the card with:  python -m pytest -m gpu tests/test_torch_cuda.py
@@ -789,3 +790,43 @@ def test_completed_resident_checkpoint_launches_nothing(card, tmp_path):
     assert (r.ok, r.distinct, r.generated, r.diameter) == \
         (True, 153701, 311153, 9)
     assert not any(ops.LAUNCHES.values()), ops.LAUNCHES
+
+
+@pytest.mark.parametrize("n,seed", [(1, 0), (8192, 0), (8192, 1),
+                                    (100000, 2)])
+def test_oracle_probe_matches_twin(card, n, seed):
+    """K12 against its twin on sorted seeded keys, bit for bit on out,
+    lo and the wrapped int32 checksum; the probe's own keys (seed 0 of
+    the reference, n 8192) are the second case."""
+    from jaxmc_torch.backend.oracle import probe_keys
+    from jaxmc_torch.kernels import ops
+    if (n, seed) == (8192, 0):
+        keys = probe_keys("cuda")
+    else:
+        rng = np.random.RandomState(seed)
+        keys = torch.as_tensor(rng.randint(-2**31, 2**31 - 1, (n, 4),
+                                           dtype=np.int64).astype(np.int32),
+                               device="cuda")
+    perm = ops.lsd_sort(keys)
+    sk = keys[perm].contiguous()
+    perm = perm.to(torch.int32)
+    before = ops.LAUNCHES["oracle_probe"]
+    got = ops.oracle_probe(sk, perm, keys)
+    want = ops.oracle_probe_twin(sk, perm, keys)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["oracle_probe"] == before + 1
+    for a, b in zip(got, want):
+        _eq(a, b)
+
+
+def test_oracle_chooses_the_card(card):
+    """The preflight oracle on the card: the gpu probe (K12) is live and
+    wins, and its process launched K12 once for each of its two calls."""
+    from jaxmc_torch import obs
+    from jaxmc_torch.backend import oracle
+    tel = obs.Telemetry()
+    v = oracle.preflight(tel=tel, use_cache=False)
+    assert v["platform"] == "gpu", v
+    assert v["probes"]["gpu"]["live"] and v["probes"]["cpu"]["live"], v
+    assert tel.gauges["backend.oracle_choice"] == "gpu"
+    assert v["probes"]["gpu"]["launches"] == 2, v

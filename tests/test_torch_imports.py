@@ -148,11 +148,19 @@ def test_cli_refuses_unported_options_by_item(flag, item, capsys,
                                  "jaxmc_torch.engine.ckpt",
                                  "jaxmc_torch.drain",
                                  "jaxmc_torch.engine.parallel",
-                                 "jaxmc_torch.engine.explore"])
+                                 "jaxmc_torch.engine.explore",
+                                 "jaxmc_torch.obs",
+                                 "jaxmc_torch.obs.report",
+                                 "jaxmc_torch.obs.prof",
+                                 "jaxmc_torch.obs.watchdog",
+                                 "jaxmc_torch.obs.ledger",
+                                 "jaxmc_torch.obs.timeline",
+                                 "jaxmc_torch.backend",
+                                 "jaxmc_torch.backend.oracle"])
 def test_new_modules_import_without_jax(mod):
-    """The batching, session, checkpoint, drain and interpreter modules
-    import with jax and jaxmc made unimportable (a subprocess with both
-    blocked)."""
+    """The batching, session, checkpoint, drain, interpreter,
+    observability and backend modules import with jax and jaxmc made
+    unimportable (a subprocess with both blocked)."""
     import subprocess
     import sys
     code = ("import sys\n"
@@ -162,6 +170,24 @@ def test_new_modules_import_without_jax(mod):
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'jaxmc') and sys.modules[m] is not None]\n"
             "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+@pytest.mark.parametrize("mod", ["jaxmc_torch.obs",
+                                 "jaxmc_torch.obs.report",
+                                 "jaxmc_torch.backend",
+                                 "jaxmc_torch.backend.oracle"])
+def test_obs_and_backend_import_without_torch(mod):
+    """The report CLI and the backend layer import torch lazily, as the
+    reference's import jax lazily: they load with torch unimportable."""
+    import subprocess
+    import sys
+    code = ("import sys\n"
+            "for m in ('torch', 'jax', 'jaxlib', 'jaxmc'):\n"
+            "    sys.modules[m] = None\n"
+            f"import {mod}\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
