@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""Smoke run of the torch port on one CUDA card: builds the twelve
+"""Smoke run of the torch port on one CUDA card: builds the fourteen
 hand-written kernels and the native fingerprint store, holds each
 kernel against its plain PyTorch twin at the shapes the engines give
 it, times both, and checks models end to end through the port's entry
 points: the level engine, the chunked host-seen engine, the resident
 engine, the out-of-core seen tiers, temporal and refinement PROPERTYs,
 cross-model batching, checkpoints, resume and drain, the full-sort
-level step, and the telemetry artifacts, the profiler and the backend
-oracle.
+level step, the telemetry artifacts, the profiler and the backend
+oracle, and the sharded mesh engine with its multi-process runner.
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
@@ -139,6 +139,29 @@ Phases (any failure raises; the exit code is then not 0):
                against its twin, bit-exact, timed with L2 written over
                before each call beside its bound and searchsorted +
                index_copy_ + two sums (row "oracle_probe")
+ 22 mesh       the mesh engine (MeshExplorer) with D = 4 shards on the
+               card: transfer_scaled_4p on the a2a exchange and the rank
+               merge to phase 7's pins, every mesh kernel launched (K1-K4,
+               K8 at the mesh_block, mesh_vc and mesh_front sites, K13
+               mesh_route, K14 mesh_scalars); wall, generated states/s,
+               peak memory, mesh.a2a_max_bucket and mesh.shard_balance;
+               then at its widest level K13 against its twin, bit-exact,
+               in the receive layout and as the send layout plus its
+               transposed copy, beside its byte bound and a stable
+               torch.sort + index_copy_ + transpose (row
+               "mesh_route@4p"), and K14 against its twin beside sum /
+               amax / amin (row "mesh_scalars@4p"); the same model on
+               the gather exchange (row "mesh_route_gather@4p", beside
+               torch.where) and at D = 2 with JAXMC_MESH_RANKMERGE=0 (K11
+               per shard); msgstoy_scaled --por at D = 4 to the level
+               engine's pins and por.* counters, and msgstoy at T 5 with
+               --por on the card equal to the CPU; pcal_intro_buggy at
+               D = 2, card equal to CPU with its trace; the mesh_skew
+               fault on transfer_scaled (every state on shard 0, a second
+               run sized into the spill window: spills, exact counts); a
+               truncation checkpoint and resume of the 4-process model at
+               D = 4; the multi-process runner (backend/multihost.py) at
+               world size 1 on NCCL to transfer_scaled's pins
 The last three lines are the `nvidia-smi` name and power limit, the
 kernel table as JSON and {"ok": true, "device": {...}}.
 
@@ -243,6 +266,14 @@ ENGINE_FLAGS = {"level": [],
 DURABLE = os.path.join(ROOT, "jaxmc_torch", "kernels", "_build", "durable")
 # phase 21: the artifacts and traces of its CLI runs (removed after)
 OBS_DIR = os.path.join(ROOT, "jaxmc_torch", "kernels", "_build", "obs")
+# phase 22: the shards of the mesh runs, the kernels a mesh search on the
+# a2a exchange and the rank merge launches, and the gitignored directory
+# of its checkpoint and cfg (removed after)
+MESH_D = 4
+MESH_KERNELS = ("unpack_rows", "keys_of", "seen_probe", "rank_merge",
+                "resident_compact_mesh_block", "resident_compact_mesh_vc",
+                "resident_compact_mesh_front", "mesh_route", "mesh_scalars")
+MESH_DIR = os.path.join(ROOT, "jaxmc_torch", "kernels", "_build", "mesh")
 
 
 def log(msg: str) -> None:
@@ -2361,6 +2392,412 @@ def phase_obs(smi, tag="21 obs"):
         shutil.rmtree(d, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the sharded mesh engine, K13 and K14
+# ---------------------------------------------------------------------------
+
+def _device_note(ms):
+    """A device time for a note; the profiler gives no kernel events
+    after many sessions in one process, and then it is not measured."""
+    return f"device time {ms:.4f} ms" if ms else \
+        "device time not measured (no kernel events from the profiler)"
+
+
+def mesh_engine(spec, cfg, shards, capture=None, device=DEVICE, **kw):
+    """A MeshExplorer with `shards` shards on `device`; with `capture`,
+    the inputs of the level with the widest frontier are kept there
+    (the arguments of _level_core, a rolled-back attempt included)."""
+    from jaxmc_torch.backend.mesh import MeshExplorer
+    from jaxmc_torch.session import load_model
+
+    class Capture(MeshExplorer):
+        def _level_core(self, xchg, seen, scounts, frontier, fcounts, SC,
+                        FC, VC, por, need_edges):
+            n = sum(fcounts)
+            if n > capture.get("n", -1):
+                capture.update(n=n, args=(xchg, list(seen), list(scounts),
+                                          list(frontier), list(fcounts), SC,
+                                          FC, VC, por, need_edges))
+            return super()._level_core(xchg, seen, scounts, frontier,
+                                       fcounts, SC, FC, VC, por, need_edges)
+
+    cls = Capture if capture is not None else MeshExplorer
+    kw.setdefault("progress_every", 1e9)
+    return cls(load_model(os.path.join(SPECS, spec), cfg), shards=shards,
+               device=device, **kw)
+
+
+def _mesh_blocks(eng, args):
+    """The stacked candidate block of a captured level, as _level_core
+    builds it: ([D, C, K] keys, [D, C, PW] rows, [D, C] validity)."""
+    _x, _seen, _sc, frontier, fcounts, _SC, FC, _VC, _por, _e = args
+    D, C = eng.D, eng.A * FC
+    ckeys = torch.empty((D, C, eng.K), dtype=torch.int32, device=DEVICE)
+    cand = torch.empty((D, C, eng.PW), dtype=torch.int32, device=DEVICE)
+    cvalid = torch.empty((D, C), dtype=torch.bool, device=DEVICE)
+    for m in range(D):
+        b = eng._block(frontier[m], fcounts[m])
+        ckeys[m], cand[m], cvalid[m] = b["ckeys"], b["cand"], b["cvalid"]
+    return ckeys, cand, cvalid
+
+
+def check_mesh_route(eng, got, launches, tag):
+    """K13 (a2a) at the widest level of the a2a run: against its twin,
+    bit-exact; the send layout plus its transposed copy against the
+    receive layout; the library sequence (a stable torch.sort by owner,
+    index_copy_ into the send layout, the transpose)."""
+    from jaxmc_torch.kernels import ops
+    ckeys, cand, cvalid = _mesh_blocks(eng, got["args"])
+    D, C, K = ckeys.shape
+    PW = cand.shape[2]
+    FC = got["args"][6]
+    R, B, SB = eng._route_shape(C, FC)
+    args = (ckeys, cand, cvalid, D, B, SB)
+    k = ops.mesh_route(*args)
+    t = ops.mesh_route_twin(*args)
+    torch.cuda.synchronize()
+    err = _max_abs(k, t)
+    Pw = K + PW + 1
+
+    def to_recv(x):
+        # the all_to_all's exchange of a send layout [S, R, w] on one card
+        w = x.shape[2]
+        main = x[:, :D * B].reshape(D, D, B, w).transpose(0, 1)
+        spill = x[:, D * B:].reshape(D, D, SB, w).transpose(0, 1)
+        return torch.cat([main.reshape(D, D * B, w),
+                          spill.reshape(D, D * SB, w)], dim=1)
+
+    def send_then_transpose():
+        ok, oc, osrc, _st = ops.mesh_route(*args, send=True)
+        return (to_recv(ok), to_recv(oc), to_recv(osrc[:, :, None])[:, :, 0])
+
+    st = send_then_transpose()
+    err = max(err, _max_abs(st, k[:3]))
+    ar = torch.arange(C, device=DEVICE)
+    rows_all = torch.cat([ckeys, cand, (torch.arange(D, device=DEVICE)[:, None]
+                                        * C + ar)[:, :, None].to(torch.int32)],
+                         dim=2).reshape(D * C, Pw)
+
+    def library():
+        dest = torch.where(cvalid, (ckeys[:, :, 1].to(torch.int64)
+                                    & 0xFFFFFFFF) % D, D)
+        sdest, perm = torch.sort(dest, dim=1, stable=True)
+        counts = torch.zeros((D, D + 1), dtype=torch.int64, device=DEVICE)
+        counts.scatter_add_(1, dest, torch.ones_like(dest))
+        excl = torch.cumsum(counts, 1) - counts
+        pos = ar[None, :] - excl.gather(1, sdest)
+        src = torch.arange(D, device=DEVICE)[:, None] * R
+        slot = src + torch.where(pos < B, sdest * B + pos,
+                                 D * B + sdest * SB + pos - B)
+        keep = (sdest < D) & (pos < B + SB)
+        out = torch.full((D * R, Pw), 2**31 - 1, dtype=torch.int32,
+                         device=DEVICE)
+        out[:, 0] = 1
+        flat = (torch.arange(D, device=DEVICE)[:, None] * C + perm)[keep]
+        out.index_copy_(0, slot[keep], rows_all.index_select(0, flat))
+        return to_recv(out.reshape(D, R, Pw))
+
+    lib = library()
+    if _max_abs((lib[:, :, :K], lib[:, :, K:K + PW], lib[:, :, K + PW]),
+                k[:3]):
+        raise AssertionError("sort + index_copy_ yardstick disagrees")
+    send_ms = cuda_time(send_then_transpose, reps=5, flush=True)
+    dev_ms = device_ms(lambda: ops.mesh_route(*args), "route_", flush=True)
+    nvalid = int(cvalid.sum())
+    return _row(
+        tag, "mesh_route@4p", "jaxmc_torch/kernels/csrc/mesh.cu",
+        "jaxmc/backend/mesh.py:481", launches, err,
+        cuda_time(lambda: ops.mesh_route(*args), reps=5, flush=True),
+        cuda_time(lambda: ops.mesh_route_twin(*args), reps=2, warm=1,
+                  flush=True),
+        # keys, rows and validity of every candidate read once; every
+        # exchanged slot written once
+        D * C * (4 * (K + PW) + 1) + D * R * Pw * 4,
+        # per candidate: the owner, D destination compares in each of the
+        # count and scatter passes, the slot arithmetic
+        D * C * (2 * D + 12),
+        library_ms=cuda_time(library, reps=5, flush=True),
+        note=f" [D={D} C={C} valid={nvalid} B={B} SB={SB} R={R} K={K} "
+             f"PW={PW}; 4 launches, written in the receive layout; the "
+             f"send layout plus its transposed copy {send_ms:.4f} ms; "
+             f"{_device_note(dev_ms)}; L2 flushed before each call]")
+
+
+def check_mesh_gather(eng, got, launches, tag):
+    """K13 (gather) at the widest level of the gather run."""
+    from jaxmc_torch.kernels import ops
+    ckeys, _cand, _cv = _mesh_blocks(eng, got["args"])
+    D, C, K = ckeys.shape
+    allk = ckeys.reshape(D * C, K)
+    N = D * C
+    args = (allk, D, 0, D, False)
+    k = ops.mesh_route_gather(*args)
+    t = ops.mesh_route_gather_twin(*args)
+    torch.cuda.synchronize()
+    err = _max_abs(k, t)
+    inv = torch.full((K,), 2**31 - 1, dtype=torch.int32, device=DEVICE)
+    inv[0] = 1
+    shard = torch.arange(D, device=DEVICE)[:, None, None]
+
+    def library():
+        v = allk[:, 0] == 0
+        owner = (allk[:, 1].to(torch.int64) & 0xFFFFFFFF) % D
+        mine = (v & (owner[None, :] == shard[:, :, 0]))[:, :, None]
+        return torch.where(mine, allk[None], inv), v
+
+    if _max_abs(library(), k):
+        raise AssertionError("torch.where yardstick disagrees")
+    dev_ms = device_ms(lambda: ops.mesh_route_gather(*args), "gather",
+                       flush=True)
+    return _row(
+        tag, "mesh_route_gather@4p", "jaxmc_torch/kernels/csrc/mesh.cu",
+        "jaxmc/backend/mesh.py:453", launches, err,
+        cuda_time(lambda: ops.mesh_route_gather(*args), reps=5, flush=True),
+        cuda_time(lambda: ops.mesh_route_gather_twin(*args), reps=2,
+                  warm=1, flush=True),
+        # the gathered keys read once, each shard's masked keys and the
+        # edge validity written once
+        N * K * 4 + D * N * K * 4 + N, D * N * (K + 4),
+        library_ms=cuda_time(library, reps=5, flush=True),
+        note=f" [D={D} N={N} K={K}; 1 launch; {_device_note(dev_ms)}; "
+             f"L2 flushed before each call]")
+
+
+def check_mesh_merge(eng, got, tag):
+    """B.12b, one shard's merge at the a2a run's widest level (K8 at
+    mesh_vc and mesh_front, the LSD sort, K3, K4, the CONSTRAINTs), on
+    the kernels against the same merge on the twins: equal outputs,
+    both timed, beside the merge's byte bound."""
+    from jaxmc_torch.kernels import ops
+    _x, seen, scounts, _f, _fc, SC, FC, VC, _p, _e = got["args"]
+    ckeys, cand, cvalid = _mesh_blocks(eng, got["args"])
+    D, C, K = ckeys.shape
+    R, B, SB = eng._route_shape(C, FC)
+    gk, gc, gs, _st = ops.mesh_route(ckeys, cand, cvalid, D, B, SB)
+    del ckeys, cand, cvalid
+
+    def merge(twins):
+        eng.twins = twins
+        try:
+            out = eng._merge(seen[0], scounts[0], gk[0], gc[0], gs[0], SC,
+                             R, VC)
+        finally:
+            eng.twins = False
+        return [out[k] for k in ("seen2", "seen_count2", "front_rows",
+                                 "front_src", "front_count", "v_need")]
+
+    k, t = merge(False), merge(True)
+    torch.cuda.synchronize()
+    err = _max_abs(k, t)
+    n_new = int(k[1]) - scounts[0]
+    nvalid = int((gk[0][:, 0] == 0).sum())
+    N = VC if VC < R else R
+    bms, by = _bound(R * (K + eng.PW + 1) * 4 + scounts[0] * K * 4
+                     + int(k[1]) * K * 4 + N * (eng.PW + 1) * 4, 0)
+    ms = cuda_time(lambda: merge(False), reps=3, warm=1, flush=True)
+    tms = cuda_time(lambda: merge(True), reps=2, warm=1, flush=True)
+    log(f"[{tag}] per-shard merge (B.12b, shard 0): max_abs_err {err}, "
+        f"kernels {ms:.4f} ms, twins {tms:.4f} ms, bound {bms:.4f} ms "
+        f"({by}) [R={R} valid={nvalid} VC={VC} SC={SC} seen "
+        f"{scounts[0]} new {n_new}]")
+    if err:
+        raise AssertionError(f"{tag}: the merge on the kernels differs "
+                             f"from the twins")
+
+
+def check_mesh_scalars(eng, got, launches, tag):
+    """K14 on the partials of the a2a run's widest level."""
+    from jaxmc_torch.kernels import ops
+    args = got["args"]
+    part = eng._level_core(*args)["part"]
+    FC, SC = args[6], args[5]
+    k = ops.mesh_scalars(part, FC, SC, 0)
+    t = ops.mesh_scalars_twin(part, FC, SC, 0)
+    torch.cuda.synchronize()
+    err = _max_abs(k, t)
+    D, NP = part.shape
+
+    def library():
+        return part.sum(0), part.amax(0), part.amin(0)
+
+    dev_ms = device_ms(lambda: ops.mesh_scalars(part, FC, SC, 0), "scalars")
+    NS, NA = len(ops.MESH_REDUCE), len(ops.MESH_AUX)
+    return _row(
+        tag, "mesh_scalars@4p", "jaxmc_torch/kernels/csrc/mesh.cu",
+        "jaxmc/backend/mesh.py:1055", launches, err,
+        cuda_time(lambda: ops.mesh_scalars(part, FC, SC, 0), reps=20),
+        cuda_time(lambda: ops.mesh_scalars_twin(part, FC, SC, 0), reps=5),
+        D * NP * 4 + (NS + D * (NA + NP)) * 4, D * NS * 2,
+        library_ms=cuda_time(library, reps=20),
+        note=f" [D={D} partials {NP} per shard; 1 launch, replaces about "
+             f"twenty reductions and reads; {_device_note(dev_ms)}]")
+
+
+def _mesh_run(tag, what, make, want, need=(), absent=()):
+    """Run a mesh search with the launch counters reset just before it;
+    the counts must be `want` and the `need` kernels must have run."""
+    from jaxmc_torch import obs
+    tel = obs.reset()
+    eng, r, wall, counts, peak = run_counted(make)
+    got = (r.distinct, r.generated, r.diameter)
+    g = tel.gauges
+    log(f"[{tag}] {what}: ok={r.ok} distinct {r.distinct} generated "
+        f"{r.generated} diameter {r.diameter}; wall {wall:.3f}s, "
+        f"{r.generated / wall:.0f} generated states/s; peak "
+        f"{peak / 2**30:.2f} GiB; mesh.a2a_max_bucket "
+        f"{g.get('mesh.a2a_max_bucket')} mesh.shard_balance "
+        f"{g.get('mesh.shard_balance')} mesh.a2a_spill "
+        f"{g.get('mesh.a2a_spill')} gamma {g.get('mesh.a2a_gamma')}; "
+        f"host_syncs {tel.counters.get('mesh.host_syncs')} over "
+        f"{len(tel.levels)} level records; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    if want is not None and (got != want or not r.ok):
+        raise AssertionError(f"{tag} {what}: {got} != {want}")
+    missing = [k for k in need if counts[k] <= 0]
+    if missing or any(counts[k] for k in absent):
+        raise AssertionError(f"{tag} {what}: kernels not launched "
+                             f"{missing} or launched {absent}: {counts}")
+    return eng, r, counts, tel
+
+
+def phase_mesh(pins_4p, tag="22 mesh"):
+    """The sharded mesh engine with D shards on the card.  Returns the
+    K13 (both modes) and K14 table rows."""
+    from jaxmc_torch import faults, obs
+    from jaxmc_torch.backend.multihost import launch
+    rows = []
+    D = MESH_D
+    # the 4-process model, a2a exchange, rank merge: K13 and K14 on the
+    # main path, then both held and timed at its widest level
+    got = {}
+    eng, _r, counts, _tel = _mesh_run(
+        tag, f"transfer_scaled_4p D={D} a2a rank",
+        lambda: mesh_engine("transfer_scaled.tla", CFG_4P, D, got,
+                            exchange="a2a"),
+        pins_4p, need=MESH_KERNELS, absent=("mesh_route_gather",))
+    rows.append(check_mesh_route(eng, got, counts["mesh_route"], tag))
+    check_mesh_merge(eng, got, tag)
+    rows.append(check_mesh_scalars(eng, got, counts["mesh_scalars"], tag))
+    del eng, got
+    got = {}
+    eng, _r, counts, _tel = _mesh_run(
+        tag, f"transfer_scaled_4p D={D} gather rank",
+        lambda: mesh_engine("transfer_scaled.tla", CFG_4P, D, got,
+                            exchange="gather"),
+        pins_4p, need=("mesh_route_gather", "mesh_scalars"),
+        absent=("mesh_route",))
+    rows.append(check_mesh_gather(eng, got, counts["mesh_route_gather"],
+                                  tag))
+    del eng, got
+    os.environ["JAXMC_MESH_RANKMERGE"] = "0"
+    try:
+        _mesh_run(tag, "transfer_scaled_4p D=2 a2a fullsort",
+                  lambda: mesh_engine("transfer_scaled.tla", CFG_4P, 2,
+                                      store_trace=False),
+                  pins_4p, need=("fullsort_dedup", "mesh_route",
+                                 "mesh_scalars"),
+                  absent=("rank_merge",))
+    finally:
+        os.environ.pop("JAXMC_MESH_RANKMERGE", None)
+    # --por: the level engine's pins (mesh POR probes the same pre-level
+    # seen set), and the card equal to the port's CPU run at D shards on
+    # msgstoy with T 5
+    _eng, _r, _c, tel = _mesh_run(
+        tag, f"msgstoy_scaled --por D={D}",
+        lambda: mesh_engine("msgstoy.tla", CFG_POR, D, por=True,
+                            store_trace=False),
+        PINS_POR, need=("seen_probe_por", "por_mask", "mesh_route"))
+    por = dict(tel.counters, **tel.gauges)
+    got_por = {k: por.get(k) for k in POR_PINS}
+    if got_por != POR_PINS:
+        raise AssertionError(f"{tag}: por counters {got_por} != {POR_PINS}")
+    os.makedirs(MESH_DIR, exist_ok=True)
+    small = os.path.join(MESH_DIR, "msgstoy_t5.cfg")
+    with open(CFG_POR) as fh:
+        text = fh.read().replace("T = 10", "T = 5")
+    with open(small, "w") as fh:
+        fh.write(text)
+    res = {}
+    for dev in (DEVICE, "cpu"):
+        tel = obs.reset()
+        r = mesh_engine("msgstoy.tla", small, D, device=dev, por=True).run()
+        res[dev] = (_summary(r), {k: tel.counters.get(k, tel.gauges.get(k))
+                                  for k in POR_PINS})
+    log(f"[{tag}] msgstoy T=5 --por D={D}: {res[DEVICE][0][1:4]} "
+        f"{res[DEVICE][1]}; cuda == cpu: {res[DEVICE] == res['cpu']}")
+    if res[DEVICE] != res["cpu"]:
+        raise AssertionError(f"{tag}: msgstoy --por card != cpu")
+    # a violation and its trace: card == CPU
+    res = {dev: _summary(mesh_engine("pcal_intro_buggy.tla", None, 2,
+                                     device=dev).run())
+           for dev in (DEVICE, "cpu")}
+    log(f"[{tag}] pcal_intro_buggy D=2: {res[DEVICE][4]} generated "
+        f"{res[DEVICE][1]} distinct {res[DEVICE][2]}, trace "
+        f"{res[DEVICE][6].count('State ')} states; cuda == cpu: "
+        f"{res[DEVICE] == res['cpu']}")
+    if res[DEVICE] != res["cpu"] or res[DEVICE][1:3] != (9040, 6135):
+        raise AssertionError(f"{tag}: pcal_intro_buggy card != cpu")
+    # the mesh_skew fault: every state on shard 0.  A first run measures
+    # the widest destination bucket, a second pins FC and sizes gamma so
+    # that bucket lands in the spill window
+    cfg_ts = os.path.join(SPECS, "transfer_scaled.cfg")
+    os.environ["JAXMC_FAULTS"] = "mesh_skew"
+    try:
+        faults.reset_for_tests()
+        _e, _r, _c, tel = _mesh_run(
+            tag, f"transfer_scaled mesh_skew D={D}",
+            lambda: mesh_engine("transfer_scaled.tla", cfg_ts, D,
+                                store_trace=False), PINS)
+        lv = [(x["max_bucket"], x["fc"]) for x in tel.levels
+              if x.get("max_bucket")]
+        fcmax, mb = max(f for _, f in lv), max(b for b, _ in lv)
+        faults.reset_for_tests()
+
+        def skewed():
+            e = mesh_engine("transfer_scaled.tla", cfg_ts, D,
+                            store_trace=False,
+                            mesh_caps={"SC": 1 << 18, "FC": fcmax,
+                                       "TRL": 16, "GAM16": 1})
+            e._a2a_gamma = (mb - 1) * D / (e.A * fcmax)
+            return e
+        _e, _r, _c, tel = _mesh_run(tag, f"transfer_scaled mesh_skew D={D}"
+                                    f" in the spill window", skewed, PINS)
+        if not tel.gauges.get("mesh.a2a_spill"):
+            raise AssertionError(f"{tag}: the skewed run spilled nothing")
+    finally:
+        os.environ.pop("JAXMC_FAULTS", None)
+        faults.reset_for_tests()
+    # truncate at half the distinct states with a checkpoint, resume
+    ck = os.path.join(MESH_DIR, "mesh4p.ck")
+    try:
+        r1 = mesh_engine("transfer_scaled.tla", CFG_4P, D, store_trace=False,
+                         max_states=pins_4p[0] // 2,
+                         checkpoint_path=ck).run()
+        size = os.path.getsize(ck)
+        _e, r2, _c, _t = _mesh_run(
+            tag, f"transfer_scaled_4p D={D} resumed",
+            lambda: mesh_engine("transfer_scaled.tla", CFG_4P, D,
+                                store_trace=False, resume_from=ck),
+            pins_4p, need=("mesh_route", "mesh_scalars"))
+        log(f"[{tag}] truncated at {r1.distinct} distinct "
+            f"({size / 2**20:.1f} MiB checkpoint), resumed to "
+            f"{r2.distinct} / {r2.generated}")
+        if not r1.truncated:
+            raise AssertionError(f"{tag}: the truncated run was not")
+    finally:
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
+    # the multi-process runner, one rank on NCCL
+    t0 = time.time()
+    out = launch(1, ["--spec", os.path.join(SPECS, "transfer_scaled.tla"),
+                     "--fc", "65536", "--sc", str(1 << 18)], timeout=300)
+    want = f"MULTIHOST p0: {PINS[1]} generated / {PINS[0]} distinct"
+    log(f"[{tag}] multihost world 1 (nccl): {out[0].strip()} in "
+        f"{time.time() - t0:.1f}s")
+    if out[0].strip().splitlines()[-1] != want:
+        raise AssertionError(f"{tag}: multihost {out[0]!r} != {want!r}")
+    return rows
+
+
 def main() -> int:
     t_start = time.time()
 
@@ -2450,6 +2887,8 @@ def main() -> int:
     table.append(phase_full_sort(counts_4p))
     mark(20)
     table.append(phase_obs(smi))
+    mark(21)
+    table += phase_mesh(counts_4p)
     log(f"[done] {time.time() - t_start:.1f}s")
     print(f"{smi}")
     print(json.dumps({"kernels": table}))

@@ -12,9 +12,10 @@ The reference's BackendDescriptor carries the platform, mesh shape,
 donation policy and capacity-profile namespace to its engines.  The
 port's engines run on one torch device, update their buffers in place
 and keep no capacity profiles, so they read what they need from their
-`device`; a descriptor comes with the mesh (ROADMAP A.12).
+`device`; the mesh engine adds its shard count (`shards`, every visible
+card by default), and the multi-process runner its rank and world size.
 
-The engines live in backend/{bfs,batch,tiers}.py.  This module never
+The engines live in backend/{bfs,batch,mesh,multihost,tiers}.py.  This module never
 imports torch at import time — `python -m jaxmc_torch.obs` must keep
 working anywhere.
 """

@@ -24,7 +24,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
 BUILD_ROOT = os.path.join(HERE, "_build")
 SOURCES = ("unpack", "keys", "probe", "merge", "canon", "por", "hstep",
-           "resident", "batch", "fullsort", "oracle")
+           "resident", "batch", "fullsort", "oracle", "mesh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -62,6 +62,14 @@ ARGTYPES = {
     "jmc_fullsort_scan": [_P] * 5 + [_I, _P],
     "jmc_fullsort_scatter": [_P] * 7 + [_I64, _I, _I64, _I64, _P],
     "jmc_oracle_probe": [_P] * 6 + [_I, _I, _P],
+    "jmc_mesh_threads": [],
+    "jmc_mesh_route_fill": [_P] * 3 + [_I64, _I, _I, _P],
+    "jmc_mesh_route_count": [_P] * 3 + [_I64, _I, _I, _I, _I, _I, _P],
+    "jmc_mesh_route_scan": [_P] * 3 + [_I, _I, _P],
+    "jmc_mesh_route_scatter": [_P] * 9 + [_I64, _I, _I, _I, _I64, _I64, _I,
+                                          _I64, _I, _I, _I, _P],
+    "jmc_mesh_route_gather": [_P] * 3 + [_I64, _I, _I, _I, _I, _I, _P],
+    "jmc_mesh_scalars": [_P] * 2 + [_I, _I, _I, _I, _P],
 }
 # return types other than the cudaError_t (an int) of a launch
 RESTYPE = {"jmc_canon_threads": _I64}
@@ -80,7 +88,10 @@ ENTRY = {"unpack": ["jmc_unpack_rows"], "keys": ["jmc_keys_of"],
                    "jmc_batch_scatter"],
          "fullsort": ["jmc_fullsort_threads", "jmc_fullsort_count",
                       "jmc_fullsort_scan", "jmc_fullsort_scatter"],
-         "oracle": ["jmc_oracle_probe"]}
+         "oracle": ["jmc_oracle_probe"],
+         "mesh": ["jmc_mesh_threads", "jmc_mesh_route_fill",
+                  "jmc_mesh_route_count", "jmc_mesh_route_scan", "jmc_mesh_route_scatter",
+                  "jmc_mesh_route_gather", "jmc_mesh_scalars"]}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -49,6 +49,13 @@ too, which is how the kernels are compared with them on the card.
   oracle_probe  K12 backend/oracle.py `probe` after its sort: the rank
                     scatter, the 14-step lower bound and the wrapped
                     int32 checksum of the preflight probe
+  mesh_route    K13 backend/mesh.py _route_fn: the a2a exchange's
+                    owner buckets and spill buckets (counted as
+                    mesh_route), or the gather exchange's ownership
+                    mask (mesh_route_gather)
+  mesh_scalars  K14 backend/mesh.py _mk_level_tail's psum / pmax /
+                    pmin: the replicated scalar vector and the
+                    localization vectors from the shards' partials
 """
 
 from __future__ import annotations
@@ -75,7 +82,12 @@ LAUNCHES: Dict[str, int] = {"unpack_rows": 0, "keys_of": 0,
                             "resident_compact_explore": 0,
                             "resident_compact_edges": 0,
                             "resident_fold": 0, "batch_epilogue": 0,
-                            "fullsort_dedup": 0, "oracle_probe": 0}
+                            "fullsort_dedup": 0, "oracle_probe": 0,
+                            "resident_compact_mesh_block": 0,
+                            "resident_compact_mesh_vc": 0,
+                            "resident_compact_mesh_front": 0,
+                            "mesh_route": 0, "mesh_route_gather": 0,
+                            "mesh_scalars": 0}
 # arms the device POR filter takes (por.cu kMaxWords * 64)
 POR_MAX_ARMS = 1024
 
@@ -1259,3 +1271,273 @@ def oracle_probe(sk: torch.Tensor, perm: torch.Tensor, keys: torch.Tensor,
                                   _stream())
         _launch("oracle_probe", rc)
     return out, lo, acc
+
+
+# ---------------------------------------------------------------------------
+# K13 mesh_route
+# ---------------------------------------------------------------------------
+
+# destinations the kernel's shared ballot table holds (mesh.cu kMaxDest)
+MESH_MAX_DEST = 64
+
+
+def _invalid_key(K: int, device) -> torch.Tensor:
+    """The invalid key row [1, SENTINEL, ...] (validity lane 1)."""
+    inv = torch.full((K,), SENTINEL, dtype=torch.int32, device=device)
+    inv[0] = 1
+    return inv
+
+
+def mesh_owner_twin(lane1: torch.Tensor, D: int, skew: bool) -> torch.Tensor:
+    """The ownership formula on the device (mesh._owner_jnp): key lane 1
+    as uint32 mod D, or shard 0 under the mesh_skew fault; int64 [N]."""
+    if skew:
+        return torch.zeros(lane1.shape[0], dtype=torch.int64,
+                           device=lane1.device)
+    return _u32(lane1) % D
+
+
+def mesh_route_twin(keys: torch.Tensor, cand: torch.Tensor,
+                    valid: torch.Tensor, D: int, B: int, SB: int,
+                    skew: bool = False, src_lo: int = 0, send: bool = False):
+    """The a2a exchange of mesh._route_fn (route_a2a, mesh.py:481-537)
+    for S source shards keys [S, C, K], cand [S, C, PW], valid [S, C]:
+    each source stable-sorts its valid rows by owner, and the row at
+    position p of destination d goes to d's main bucket (p < B), its
+    spill bucket (p < B + SB) or nowhere.  The payload's source index is
+    (src_lo + s) * C + row.
+
+    Returns (okeys [O, R, K], ocand [O, R, PW], osrc [O, R], stats
+    [S, 3]) with R = D * (B + SB), all int32; stats = (spill rows,
+    bucket+spill overflow, largest destination count) per source.
+    send=False (S == D) lays the rows out as the reference's receive
+    block of each destination (every source's main bucket, then every
+    source's spill bucket); send=True as each source's send block
+    (destination-major main buckets, then spill buckets), O = S.
+    Unfilled slots hold [1, SENTINEL, ...]."""
+    S, C, K = keys.shape
+    PW = cand.shape[2]
+    R = D * (B + SB)
+    O = S if send else D
+    dev = keys.device
+    okeys = torch.full((O * R, K), SENTINEL, dtype=torch.int32, device=dev)
+    okeys[:, 0] = 1
+    ocand = torch.full((O * R, PW), SENTINEL, dtype=torch.int32, device=dev)
+    osrc = torch.full((O * R,), SENTINEL, dtype=torch.int32, device=dev)
+    stats = torch.zeros((S, 3), dtype=torch.int32, device=dev)
+    ar = torch.arange(C, device=dev)
+    for s in range(S):
+        owner = mesh_owner_twin(keys[s, :, 1], D, skew)
+        dest = torch.where(valid[s], owner, D)
+        counts = torch.bincount(dest, minlength=D + 1)
+        sperm = torch.argsort(dest, stable=True)
+        sdest = dest[sperm]
+        excl = torch.cumsum(counts, 0) - counts
+        pos = ar - excl[sdest]
+        sg = src_lo + s
+        live = sdest < D
+        main = live & (pos < B)
+        spill = live & (pos >= B) & (pos < B + SB)
+        if send:
+            slot_m = s * R + sdest * B + pos
+            slot_s = s * R + D * B + sdest * SB + (pos - B)
+        else:
+            slot_m = sdest * R + sg * B + pos
+            slot_s = sdest * R + D * B + sg * SB + (pos - B)
+        ok = main | spill
+        slot = torch.where(main, slot_m, slot_s)[ok]
+        rows = sperm[ok]
+        okeys[slot] = keys[s][rows]
+        ocand[slot] = cand[s][rows]
+        osrc[slot] = (sg * C + rows).to(torch.int32)
+        c = counts[:D]
+        stats[s, 0] = (c - B).clamp(0, SB).sum().to(torch.int32)
+        stats[s, 1] = (c > B + SB).any().to(torch.int32)
+        stats[s, 2] = c.max().to(torch.int32) if D else 0
+    return (okeys.reshape(O, R, K), ocand.reshape(O, R, PW),
+            osrc.reshape(O, R), stats)
+
+
+def mesh_route(keys: torch.Tensor, cand: torch.Tensor, valid: torch.Tensor,
+               D: int, B: int, SB: int, skew: bool = False, src_lo: int = 0,
+               send: bool = False):
+    """K13 (a2a): mesh_route_twin's function in four launches (fill,
+    per-block destination counts, per-destination scan, ballot-ranked
+    scatter).  Bit-equal to the twin."""
+    _check(keys, "mesh_route.keys", 3)
+    _check(cand, "mesh_route.cand", 3)
+    _check(valid, "mesh_route.valid", 2, torch.bool)
+    S, C, K = keys.shape
+    PW = cand.shape[2]
+    if tuple(cand.shape[:2]) != (S, C) or tuple(valid.shape) != (S, C):
+        raise ValueError(f"mesh_route: keys {tuple(keys.shape)}, cand "
+                         f"{tuple(cand.shape)}, valid {tuple(valid.shape)}")
+    if not 1 <= D <= MESH_MAX_DEST:
+        raise ValueError(f"mesh_route: {D} destinations, the kernel takes "
+                         f"1 to {MESH_MAX_DEST}")
+    if not send and (S != D or src_lo != 0):
+        raise ValueError("mesh_route: the receive layout needs every "
+                         "source shard (S == D, src_lo 0)")
+    R = D * (B + SB)
+    O = S if send else D
+    if max(O * R, S * C) >= 2**31 - 256:
+        raise ValueError(f"mesh_route: {O * R} slots, {S * C} candidates: "
+                         f"the kernel's source indices are int32")
+    if keys.device.type == "cpu":
+        return mesh_route_twin(keys, cand, valid, D, B, SB, skew, src_lo,
+                               send)
+    _same_device("mesh_route", keys, cand, valid)
+    from . import build
+    lib = build.library("mesh")
+    dev = keys.device
+    threads = int(lib.jmc_mesh_threads())
+    nb = max(1, -(-C // threads))
+    okeys = torch.empty((O, R, K), dtype=torch.int32, device=dev)
+    ocand = torch.empty((O, R, PW), dtype=torch.int32, device=dev)
+    osrc = torch.empty((O, R), dtype=torch.int32, device=dev)
+    stats = torch.empty((S, 3), dtype=torch.int32, device=dev)
+    if S == 0:
+        return okeys, ocand, osrc, stats
+    bcnt = torch.empty((S * D * nb,), dtype=torch.int32, device=dev)
+    boff = torch.empty((S * D * nb,), dtype=torch.int64, device=dev)
+    totals = torch.empty((S * D,), dtype=torch.int64, device=dev)
+    rc = lib.jmc_mesh_route_fill(_ptr(okeys), _ptr(ocand), _ptr(osrc),
+                                 ctypes.c_int64(O * R), ctypes.c_int(K),
+                                 ctypes.c_int(PW), _stream())
+    _launch("mesh_route", rc)
+    rc = lib.jmc_mesh_route_count(_ptr(keys), _ptr(valid), _ptr(bcnt),
+                                  ctypes.c_int64(C), ctypes.c_int(K),
+                                  ctypes.c_int(D), ctypes.c_int(int(skew)),
+                                  ctypes.c_int(S), ctypes.c_int(nb),
+                                  _stream())
+    _launch("mesh_route", rc)
+    rc = lib.jmc_mesh_route_scan(_ptr(bcnt), _ptr(boff), _ptr(totals),
+                                 ctypes.c_int(S * D), ctypes.c_int(nb),
+                                 _stream())
+    _launch("mesh_route", rc)
+    rc = lib.jmc_mesh_route_scatter(
+        _ptr(keys), _ptr(cand), _ptr(valid), _ptr(boff), _ptr(totals),
+        _ptr(okeys), _ptr(ocand), _ptr(osrc), _ptr(stats), ctypes.c_int64(C),
+        ctypes.c_int(K), ctypes.c_int(PW), ctypes.c_int(D),
+        ctypes.c_int64(B), ctypes.c_int64(SB), ctypes.c_int(int(skew)),
+        ctypes.c_int64(src_lo), ctypes.c_int(int(send)), ctypes.c_int(S),
+        ctypes.c_int(nb), _stream())
+    _launch("mesh_route", rc)
+    return okeys, ocand, osrc, stats
+
+
+def mesh_route_gather_twin(keys: torch.Tensor, D: int, me_lo: int = 0,
+                           n_me=None, skew: bool = False):
+    """The gather exchange of mesh._route_fn (route_gather, mesh.py:
+    453-469) after its all_gather: over the gathered keys [N, K], shard
+    me_lo + m keeps the valid rows it owns and sees every other row as
+    the invalid key.  Returns (okeys [n_me, N, K] int32, evalid [N]
+    bool: the validity lane before the mask)."""
+    n_me = D if n_me is None else n_me
+    v = keys[:, 0] == 0
+    owner = mesh_owner_twin(keys[:, 1], D, skew)
+    inv = _invalid_key(keys.shape[1], keys.device)
+    out = torch.stack([torch.where((v & (owner == me_lo + m))[:, None],
+                                   keys, inv) for m in range(n_me)]) \
+        if n_me else keys.new_empty((0,) + tuple(keys.shape))
+    return out, v
+
+
+def mesh_route_gather(keys: torch.Tensor, D: int, me_lo: int = 0,
+                      n_me=None, skew: bool = False):
+    """K13 (gather): mesh_route_gather_twin's function in one launch."""
+    _check(keys, "mesh_route_gather.keys", 2)
+    n_me = D if n_me is None else n_me
+    N, K = keys.shape
+    if not (D >= 1 and 0 <= me_lo and me_lo + n_me <= D):
+        raise ValueError(f"mesh_route_gather: shards {me_lo}..{me_lo + n_me}"
+                         f" of {D}")
+    if keys.device.type == "cpu":
+        return mesh_route_gather_twin(keys, D, me_lo, n_me, skew)
+    from . import build
+    lib = build.library("mesh")
+    okeys = torch.empty((n_me, N, K), dtype=torch.int32, device=keys.device)
+    evalid = torch.empty((N,), dtype=torch.bool, device=keys.device)
+    if N and n_me:
+        rc = lib.jmc_mesh_route_gather(
+            _ptr(keys), _ptr(okeys), _ptr(evalid), ctypes.c_int64(N),
+            ctypes.c_int(K), ctypes.c_int(D), ctypes.c_int(me_lo),
+            ctypes.c_int(n_me), ctypes.c_int(int(skew)), _stream())
+        _launch("mesh_route_gather", rc)
+    return okeys, evalid
+
+
+# ---------------------------------------------------------------------------
+# K14 mesh_scalars
+# ---------------------------------------------------------------------------
+
+# the columns of a shard's partial row (mesh.cu P_*)
+MESH_PARTIALS = ("gen", "front", "seen", "spill", "maxdest", "vneed", "ovc",
+                 "dead", "dead_slot", "assert", "asrt_a", "asrt_f",
+                 "inv_which", "inv_slot", "por_ample", "por_expanded",
+                 "por_masked", "a2a_ovf", "v_ovf")
+# the reference's scalar vector (mesh.py:121-142), each entry as (partial
+# column, reduction over the shards); ">FC" and ">SC" are any(column >
+# capacity), "tovf" the trace-ring flag the host passes in
+MESH_REDUCE = (("gen", "sum"), ("front", "sum"), ("front", "sum"),
+               ("front", "max"), ("seen", "max"), ("seen", "sum"),
+               ("ovc", "max"), ("dead", "sum"), ("assert", "sum"),
+               ("inv_which", "min"), ("front", ">FC"), ("seen", ">SC"),
+               (None, "tovf"), ("a2a_ovf", "any"), ("spill", "sum"),
+               ("maxdest", "max"), ("v_ovf", "any"), ("vneed", "max"),
+               ("por_ample", "sum"), ("por_expanded", "sum"),
+               ("por_masked", "sum"))
+# the reference's localization vector (mesh.py:145-152)
+MESH_AUX = ("inv_which", "inv_slot", "dead", "dead_slot", "assert",
+            "asrt_a", "asrt_f")
+
+
+def mesh_scalars_twin(part: torch.Tensor, FC: int, SC: int,
+                      t_ovf: int) -> torch.Tensor:
+    """The reductions of mesh._mk_level_tail over the shard axis, in
+    torch: part [D, NP] int32 (MESH_PARTIALS columns) -> int32
+    [NS + D*NA + D*NP]: the MESH_REDUCE vector (sums wrap as int32),
+    each shard's MESH_AUX entries, then part itself."""
+    p = part.to(torch.int64)
+    col = {n: p[:, i] for i, n in enumerate(MESH_PARTIALS)}
+    out = []
+    for name, how in MESH_REDUCE:
+        if how == "tovf":
+            out.append(torch.tensor(int(t_ovf), device=part.device))
+            continue
+        x = col[name]
+        if how == "sum":
+            out.append(x.sum())
+        elif how == "max":
+            out.append(x.max())
+        elif how == "min":
+            out.append(x.min())
+        elif how == "any":
+            out.append((x != 0).any().to(torch.int64))
+        else:
+            cap = FC if how == ">FC" else SC
+            out.append((x > cap).any().to(torch.int64))
+    aux = torch.stack([col[n] for n in MESH_AUX], dim=1)
+    return _i32(torch.cat([torch.stack(out), aux.reshape(-1),
+                           p.reshape(-1)]))
+
+
+def mesh_scalars(part: torch.Tensor, FC: int, SC: int,
+                 t_ovf: int) -> torch.Tensor:
+    """K14: mesh_scalars_twin's function in one launch."""
+    _check(part, "mesh_scalars.part", 2)
+    D, NP = part.shape
+    if NP != len(MESH_PARTIALS) or D < 1:
+        raise ValueError(f"mesh_scalars: partials {tuple(part.shape)}, "
+                         f"expected [D >= 1, {len(MESH_PARTIALS)}]")
+    if part.device.type == "cpu":
+        return mesh_scalars_twin(part, FC, SC, t_ovf)
+    from . import build
+    lib = build.library("mesh")
+    out = torch.empty((len(MESH_REDUCE) + D * (len(MESH_AUX) + NP),),
+                      dtype=torch.int32, device=part.device)
+    rc = lib.jmc_mesh_scalars(_ptr(part), _ptr(out), ctypes.c_int(D),
+                              ctypes.c_int(int(FC)), ctypes.c_int(int(SC)),
+                              ctypes.c_int(int(t_ovf)), _stream())
+    _launch("mesh_scalars", rc)
+    return out

@@ -1,10 +1,12 @@
-"""The CUDA kernels of the torch port (K1-K12) against their plain
+"""The CUDA kernels of the torch port (K1-K14) against their plain
 PyTorch twins, on the card, at the shapes the engines give them, the
 level engine on the card against the corpus pins, with SYMMETRY, VIEW
 and --por among them, the host-seen engine on the card against the
 same run on the CPU, PROPERTYs on both engines, a batch cohort, the
-full-sort step, checkpoint/resume on the card against the CPU, and the
-preflight probe (K12) and the oracle's gpu verdict.
+full-sort step, checkpoint/resume on the card against the CPU, the
+preflight probe (K12) and the oracle's gpu verdict, and the mesh
+engine's exchange (K13), scalar vector (K14) and runs on the card
+against the CPU.
 
 Needs a CUDA card and nvcc; elsewhere every test skips with the reason.
 Run on the card with:  python -m pytest -m gpu tests/test_torch_cuda.py
@@ -830,3 +832,95 @@ def test_oracle_chooses_the_card(card):
     assert v["probes"]["gpu"]["live"] and v["probes"]["cpu"]["live"], v
     assert tel.gauges["backend.oracle_choice"] == "gpu"
     assert v["probes"]["gpu"]["launches"] == 2, v
+
+
+def _mesh_candidates(D, C, p, seed, K=5, PW=3):
+    rng = np.random.default_rng(seed)
+    valid = rng.random((D, C)) < p
+    keys = rng.integers(-2**31, 2**31 - 1, (D, C, K)).astype(np.int32)
+    keys[..., 0] = 0
+    keys[~valid] = SENT
+    keys[~valid, 0] = 1
+    cand = rng.integers(-2**31, 2**31 - 1, (D, C, PW)).astype(np.int32)
+    cand[~valid] = SENT
+    return [torch.as_tensor(x, device="cuda") for x in (keys, cand, valid)]
+
+
+@pytest.mark.parametrize("D,C,p,B,SB,skew", [
+    (2, 192, 0.5, 192, 48, False), (4, 4096, 0.9, 300, 75, False),
+    (4, 100000, 0.3, 50000, 12500, True),
+    (8, 65536, 0.6, 9000, 2250, False), (1, 1000, 1.0, 1000, 250, False)])
+def test_mesh_route_matches_twin(card, D, C, p, B, SB, skew):
+    """K13 (a2a) against its twin in both layouts, spills and overflows
+    included; the send layout of one source at a time is that source's
+    slice of the all-source send layout."""
+    from jaxmc_torch.kernels import ops
+    keys, cand, valid = _mesh_candidates(D, C, p, D * 7 + C)
+    for send in (False, True):
+        before = ops.LAUNCHES["mesh_route"]
+        got = ops.mesh_route(keys, cand, valid, D, B, SB, skew, send=send)
+        want = ops.mesh_route_twin(keys, cand, valid, D, B, SB, skew,
+                                   send=send)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["mesh_route"] == before + 4
+        for a, b in zip(got, want):
+            _eq(a, b)
+    one = ops.mesh_route(keys[-1:], cand[-1:], valid[-1:], D, B, SB, skew,
+                         src_lo=D - 1, send=True)
+    for a, b in zip(one, got):
+        _eq(a[0], b[-1])
+
+
+@pytest.mark.parametrize("D,N,skew", [(2, 384, False), (4, 400000, False),
+                                      (4, 5000, True)])
+def test_mesh_route_gather_matches_twin(card, D, N, skew):
+    from jaxmc_torch.kernels import ops
+    keys, _c, _v = _mesh_candidates(1, N, 0.4, N)
+    keys = keys[0]
+    for lo, n in ((0, D), (D - 1, 1)):
+        got = ops.mesh_route_gather(keys, D, lo, n, skew)
+        want = ops.mesh_route_gather_twin(keys, D, lo, n, skew)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            _eq(a, b)
+
+
+@pytest.mark.parametrize("D,seed", [(1, 0), (4, 1), (8, 2), (64, 3)])
+def test_mesh_scalars_matches_twin(card, D, seed):
+    from jaxmc_torch.kernels import ops
+    rng = np.random.default_rng(seed)
+    part = rng.integers(0, 3000, (D, len(ops.MESH_PARTIALS))).astype(np.int32)
+    part[:, ops.MESH_PARTIALS.index("inv_which")] = np.where(
+        rng.random(D) < 0.5, SENT, rng.integers(0, 4, D))
+    part[0, 0] = 2**31 - 1  # the int32 wrap of a sum
+    t = torch.as_tensor(part, device="cuda")
+    for t_ovf in (0, 1):
+        _eq(ops.mesh_scalars(t, 1024, 2048, t_ovf),
+            ops.mesh_scalars_twin(t, 1024, 2048, t_ovf))
+
+
+@pytest.mark.parametrize("spec,cfg,D,kw", [
+    ("pcal_intro_buggy.tla", None, 2, {}),
+    ("transfer_scaled.tla", None, 4, {"exchange": "gather"}),
+    ("portoy.tla", "portoy_bad.cfg", 4, {"por": True})])
+def test_mesh_on_the_card_equals_the_cpu(card, spec, cfg, D, kw):
+    """The mesh engine on the card against the same run on the CPU:
+    verdict, counts, trace; K13 and K14 launched."""
+    from jaxmc_torch.backend.mesh import MeshExplorer
+    from jaxmc_torch.engine.explore import format_trace
+    from jaxmc_torch.kernels import ops
+    from jaxmc_torch.session import load_model
+    res = {}
+    for dev in ("cuda", "cpu"):
+        m = load_model(os.path.join(SPECS, spec),
+                       cfg and os.path.join(SPECS, cfg))
+        ops.reset_launches()
+        r = MeshExplorer(m, shards=D, device=dev, **kw).run()
+        v = r.violation
+        res[dev] = (r.ok, r.generated, r.distinct, r.diameter,
+                    v and format_trace(v))
+        if dev == "cuda":
+            route = "mesh_route_gather" if kw.get("exchange") == "gather" \
+                else "mesh_route"
+            assert ops.LAUNCHES[route] > 0 and ops.LAUNCHES["mesh_scalars"] > 0
+    assert res["cuda"] == res["cpu"]
