@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the torch port on one CUDA card: builds the fourteen
-hand-written kernels and the native fingerprint store, holds each
-kernel against its plain PyTorch twin at the shapes the engines give
-it, times both, and checks models end to end through the port's entry
+hand-written kernels, the generated transition kernels of every engine
+(K15-K17: CUDA C++ that compile/cgen.py writes per model) and the
+native fingerprint store, holds each kernel against its plain PyTorch
+twin at the shapes the engines give it, times both, and checks models
+end to end through the port's entry
 points: the level engine, the chunked host-seen engine, the resident
 engine, the out-of-core seen tiers, temporal and refinement PROPERTYs,
 cross-model batching, checkpoints, resume and drain, the full-sort
@@ -14,9 +16,13 @@ oracle, and the sharded mesh engine with its multi-process runner.
 Phases (any failure raises; the exit code is then not 0):
   1 device     card name, count, `nvidia-smi` name and power limit
   2 build      nvcc each kernel for sm_90a; print its ptxas line; g++
-               the native host fingerprint store
+               the native host fingerprint store; the generated sources
+               of transfer_scaled and its 4-process model (one nvcc per
+               engine): units, bytes, nvcc wall, ptxas lines
   3 kernels    capture the widest level's inputs of transfer_scaled on
-               the card; each kernel against its twin, bit-exact; times
+               the card; each kernel against its twin, bit-exact; times;
+               K15 gen_expand against the emitter over the widest
+               level's frontier block
   4 main path  transfer_scaled (153,701 distinct / 311,153 generated /
                diameter 9) with every launch counter reset just before
                and read just after: each kernel must have run
@@ -27,22 +33,29 @@ Phases (any failure raises; the exit code is then not 0):
                (jaxmc_torch/fixtures/transfer_scaled_4p.cfg): kernels
                against the twins on the card, counts equal; then each
                kernel against its twin again, and timed, at this
-               model's widest level (rows named "...@4p")
+               model's widest level (rows named "...@4p", K15 among
+               them)
   8 symmetry   symtoy_scaled with 4 processes, MaxTurns 60 (fixtures/
                symtoy_scaled_4p.cfg, 23 permutations) on kernels and
                twins, counts equal to the reference's; K5 canon_rows and
                K2's canonical branch against their twins and timed at the
                widest level; K5 on random rows of the symkinds layout
-               (every container kind of the canonicaliser)
+               (every container kind of the canonicaliser); K15 against
+               the emitter at the widest frontier (row "gen_expand@sym")
   9 view       viewtoy_scaled at N 512 (fixtures/viewtoy_scaled_big.cfg)
                on kernels and twins, counts equal to the formula's pins;
-               K2's view branch against its twin and timed
+               K2's view branch against its twin and timed; K16 (the
+               invariant) and K17 (the VIEW) against the emitter on the
+               largest blocks they were given (rows "gen_pred@view",
+               "gen_value@view")
  10 por        msgstoy with 4 processes, T 10 (fixtures/msgstoy_
                scaled.cfg) with --por on kernels and twins: counts and
                por.* counters equal to the reference's; K6 por_mask and
                the POR site of K3 against their twins and timed at the
-               widest level; portoy (deadlock) and portoy_bad
-               (invariant) with --por on the card equal to the CPU run
+               widest level; K15 against the emitter at the widest
+               frontier (row "gen_expand@por"); portoy (deadlock) and
+               portoy_bad (invariant) with --por on the card equal to
+               the CPU run
  11 host seen  transfer_scaled_4p with --host-seen at chunk 65,536 on
                kernels and twins: the pins of phase 7, K1, K2 and K7
                launched and neither K3 nor K4; wall, generated states/s,
@@ -162,6 +175,10 @@ Phases (any failure raises; the exit code is then not 0):
                truncation checkpoint and resume of the 4-process model at
                D = 4; the multi-process runner (backend/multihost.py) at
                world size 1 on NCCL to transfer_scaled's pins
+Every kernel run of every phase launches K15 (gen_expand) and no twin
+run does: the generated kernels are held against the emitter end to
+end, on every engine.  Before the last lines, one "[gen]" line per
+generated source built in this process: nvcc wall, registers, spills.
 The last three lines are the `nvidia-smi` name and power limit, the
 kernel table as JSON and {"ok": true, "device": {...}}.
 
@@ -177,6 +194,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -196,7 +214,8 @@ L2_FLUSH_BYTES = 256 << 20
 
 PINS = (153701, 311153, 9)     # jaxmc/corpus.py transfer_scaled pins
 # the kernels a search without SYMMETRY, VIEW or --por launches
-MAIN_KERNELS = ("unpack_rows", "keys_of", "seen_probe", "rank_merge")
+MAIN_KERNELS = ("unpack_rows", "keys_of", "seen_probe", "rank_merge",
+                "gen_expand", "gen_pred")
 DEVICE = "cuda"
 FIXTURES = os.path.join(ROOT, "jaxmc_torch", "fixtures")
 CFG_4P = os.path.join(FIXTURES, "transfer_scaled_4p.cfg")
@@ -223,13 +242,13 @@ PINS_HS_POR = (3014742, 22038124, 43)
 POR_PINS_HS = {"por.ample_states": 1807106, "por.full_states": 1207635,
                "por.device_masked_arms": 1642412}
 # the kernels a host-seen search launches, and those it must not
-HS_KERNELS = ("unpack_rows", "keys_of", "hstep_epilogue")
+HS_KERNELS = ("unpack_rows", "keys_of", "hstep_epilogue", "gen_expand")
 HS_ABSENT = ("seen_probe", "seen_probe_por", "rank_merge", "por_mask")
 # the resident phases' chunk, and the kernels a resident search launches
 CHUNK_RES = 65536
 RES_KERNELS = ("unpack_rows", "keys_of", "seen_probe", "rank_merge",
                "resident_compact", "resident_compact_explore",
-               "resident_fold")
+               "resident_fold", "gen_expand")
 # the CPU formula's starting caps (TorchExplorer._res_start_caps), given
 # to the card and the CPU alike where their runs are compared line by
 # line
@@ -272,7 +291,8 @@ OBS_DIR = os.path.join(ROOT, "jaxmc_torch", "kernels", "_build", "obs")
 MESH_D = 4
 MESH_KERNELS = ("unpack_rows", "keys_of", "seen_probe", "rank_merge",
                 "resident_compact_mesh_block", "resident_compact_mesh_vc",
-                "resident_compact_mesh_front", "mesh_route", "mesh_scalars")
+                "resident_compact_mesh_front", "mesh_route", "mesh_scalars",
+                "gen_expand")
 MESH_DIR = os.path.join(ROOT, "jaxmc_torch", "kernels", "_build", "mesh")
 
 
@@ -319,6 +339,114 @@ def phase_build():
         raise AssertionError(f"native store: {native_store.build_error()}")
     log(f"[2 build] native store {os.path.relpath(native_store._SO, ROOT)} "
         f"in {time.time() - t0:.1f}s")
+
+
+# K15-K17: the generated transition kernels (compile/cgen.py writes one
+# CUDA C++ source per engine; nvcc builds it when the engine is built)
+GEN_SRC = "jaxmc_torch/compile/cgen.py"
+GEN_REPLACES = {"gen_expand": "jaxmc/compile/kernel2.py:2464",
+                "gen_pred": "jaxmc/compile/kernel2.py:2792",
+                "gen_value": "jaxmc/compile/kernel2.py:2762"}
+
+
+def _gen_note(gm) -> str:
+    nv = gm.info.get("nvcc_s")
+    return (f"{len(gm.units)} units, {len(gm.source)} bytes, nvcc "
+            + (f"{nv:.2f}s" if nv is not None else "already built"))
+
+
+def phase_build_gen():
+    """The generated sources of transfer_scaled and its 4-process model,
+    each built by one nvcc when its engine is built: wall, size and the
+    ptxas lines (registers, stack, spills) of the three kernels."""
+    for cfg in (os.path.join(SPECS, "transfer_scaled.cfg"), CFG_4P):
+        t0 = time.time()
+        eng = _engine(cfg, store_trace=False, progress_every=1e9)
+        gm = eng._gen
+        log(f"[2 build] generated {os.path.basename(cfg)} (A={eng.A} "
+            f"W={eng.W}): {_gen_note(gm)}; engine build "
+            f"{time.time() - t0:.2f}s "
+            f"({os.path.relpath(gm.info['dir'], ROOT)})")
+        for ln in gm.info["ptxas"]:
+            log(f"[2 build]   {ln}")
+
+
+def gen_summary():
+    """Every generated source this process built or loaded: nvcc wall
+    and the registers and spill bytes of its kernels."""
+    from jaxmc_torch.kernels import build
+    for dig, info in sorted(build.GEN_INFO.items()):
+        regs = [int(x) for ln in info["ptxas"]
+                for x in re.findall(r"Used (\d+) registers", ln)]
+        spills = [int(x) for ln in info["ptxas"]
+                  for x in re.findall(r"(\d+) bytes spill stores", ln)]
+        nv = info["nvcc_s"]
+        log(f"[gen] {dig}: nvcc "
+            + (f"{nv:.2f}s" if nv is not None else "already built")
+            + f", registers {regs}, spill stores {spills} bytes")
+
+
+# The bound of K15-K17 is their bytes: the operations of a unit's graph
+# are no floor, since nvcc folds much of them (K16's range test over a
+# constant 512-member interval runs in a fraction of its graph's count)
+def check_gen_expand(eng, rows, launches, tag, name="gen_expand"):
+    """K15 against its twin (the emitter loop of _expand) on `rows`,
+    bit-exact, timed with L2 written over before each call, beside its
+    bound: the rows read once, en/aok/ov/succ of every instance written
+    once."""
+    from jaxmc_torch.kernels import ops
+    gm = eng._gen
+    units = eng._gen_units(rows.device)
+    cv = eng._gen_cvals()
+    k = ops.gen_expand(gm, rows, units, cv)
+    t = ops.gen_expand_twin(gm, rows, units, cv)
+    torch.cuda.synchronize()
+    N, W, A = rows.shape[0], eng.W, units.shape[0]
+    return _row(tag, name, GEN_SRC, GEN_REPLACES["gen_expand"], launches,
+                _max_abs(list(k), list(t)),
+                cuda_time(lambda: ops.gen_expand(gm, rows, units, cv),
+                          flush=True),
+                cuda_time(lambda: ops.gen_expand_twin(gm, rows, units, cv),
+                          reps=3, warm=1),
+                N * W * 4 + A * N * (2 + 4 + W * 4), 0,
+                note=f" [N={N} A={A} W={W}; {_gen_note(gm)}]")
+
+
+def check_gen_pred_value(eng, got, counts, tag, suffix):
+    """K16 (the first invariant) and K17 (the VIEW) against their twins
+    on the largest blocks the run gave them, bit-exact and timed."""
+    from jaxmc_torch.kernels import ops
+    gm = eng._gen
+    cv = eng._gen_cvals()
+    rows_out = []
+    W = eng.W
+    rows = got["pred"][0]
+    N = rows.shape[0]
+    k = ops.gen_pred(gm, 0, rows, cv)
+    t = ops.gen_pred_twin(gm, 0, rows, cv)
+    torch.cuda.synchronize()
+    rows_out.append(_row(
+        tag, "gen_pred" + suffix, GEN_SRC, GEN_REPLACES["gen_pred"],
+        counts["gen_pred"], _max_abs(k, t),
+        cuda_time(lambda: ops.gen_pred(gm, 0, rows, cv), flush=True),
+        cuda_time(lambda: ops.gen_pred_twin(gm, 0, rows, cv), reps=3,
+                  warm=1),
+        N * W * 4 + N, 0,
+        note=f" [N={N} W={W}; {gm.preds[0].label}]"))
+    rows = got["value"][0]
+    N = rows.shape[0]
+    k = ops.gen_value(gm, rows, cv)
+    t = ops.gen_value_twin(gm, rows, cv)
+    torch.cuda.synchronize()
+    rows_out.append(_row(
+        tag, "gen_value" + suffix, GEN_SRC, GEN_REPLACES["gen_value"],
+        counts["gen_value"], _max_abs(k, t),
+        cuda_time(lambda: ops.gen_value(gm, rows, cv), flush=True),
+        cuda_time(lambda: ops.gen_value_twin(gm, rows, cv), reps=3,
+                  warm=1),
+        N * W * 4 + N * gm.VW * 4, 0,
+        note=f" [N={N} W={W} VW={gm.VW}]"))
+    return rows_out
 
 
 # ---------------------------------------------------------------------------
@@ -562,25 +690,24 @@ def phase_kernels(eng, got, tag="3 kernels", suffix=""):
            note=f" [N={N} seen_count={seen_count} SC={SC} K={K} "
                 f"new={new}; 3 launches + 2 cumsums; "
                 f"whole rank_merge (sort + K3 + K4) {whole_ms:.4f} ms]")
+
+    # K15 gen_expand over the widest level's frontier block (B.1)
+    _seen, _sc, frontier_p, _fc = got["step"]
+    rows_out.append(check_gen_expand(eng, eng._unpack(frontier_p), 0, tag,
+                                     "gen_expand" + suffix))
     return rows_out
 
 
 def phase_torch_bounds(eng, got, tag="7 bounds"):
-    """The two device programs of the level path that are torch, not a
-    hand kernel, timed at the widest level beside their byte bounds:
-    the emitter (B.1: reads FC*W words, writes A*FC*(W+3) words) and
-    the whole level step (B.7: reads the packed frontier and the live
+    """The whole level step (B.7: reads the packed frontier and the live
     seen prefix, writes the merged table and the next frontier with its
-    provenance).  Printed, not in the kernel table."""
+    provenance) timed at the widest level beside its byte bound; its
+    expand is K15 since B.1 has its kernel.  Printed, not in the kernel
+    table."""
     seen, seen_count, frontier_p, fcount = got["step"]
     FC, PW = frontier_p.shape
-    A, W, K = eng.A, eng.W, eng.K
+    K = eng.K
     SC = seen.shape[0]
-    rows = eng._unpack(frontier_p)
-    ms = cuda_time(lambda: eng._expand(rows), reps=3, warm=1)
-    bms, by = _bound((FC * W + A * FC * (W + 3)) * 4, 0)
-    log(f"[{tag}] emitter (B.1) at the widest level: {ms:.4f} ms, bound "
-        f"{bms:.4f} ms ({by}) [A={A} FC={FC} W={W}]")
     out = eng.level_step(seen, seen_count, frontier_p, fcount)
     front = int(out["scalars"][7])
     ms = cuda_time(lambda: eng.level_step(seen, seen_count, frontier_p,
@@ -696,6 +823,9 @@ def phase_real_size():
             launches = counts
         if kind == "twins" and any(counts.values()):
             raise AssertionError("twin run launched kernels")
+        if kind == "kernels" and (counts["gen_expand"] <= 0
+                                  or counts["gen_pred"] <= 0):
+            raise AssertionError(f"kernel run without K15/K16: {counts}")
     if out["kernels"] != out["twins"]:
         raise AssertionError(f"kernels {out['kernels']} != twins "
                              f"{out['twins']}")
@@ -735,8 +865,27 @@ def capturing_engine(spec, cfg, **kw):
                  FC)
             return super()._por_filter(seen, seen_count, ckeys, cvalid, FC)
 
+        def _expand(self, frontier):
+            keep("expand", frontier.shape[0], frontier)
+            return super()._expand(frontier)
+
     eng = Capture(load_model(os.path.join(SPECS, spec), cfg), device=DEVICE,
                   **kw)
+    # the largest blocks the first invariant and the VIEW are given
+    if eng.inv_fns:
+        nm0, f0 = eng.inv_fns[0]
+
+        def pred(rows, f0=f0):
+            keep("pred", rows.shape[0], rows)
+            return f0(rows)
+        eng.inv_fns = [(nm0, pred)] + list(eng.inv_fns[1:])
+    if eng.view_fn is not None:
+        v0 = eng.view_fn
+
+        def view(rows):
+            keep("value", rows.shape[0], rows)
+            return v0(rows)
+        eng.view_fn = view
     return eng, got
 
 
@@ -1672,9 +1821,10 @@ def phase_batch(tag="18 batch"):
         if twins and any(counts.values()):
             raise AssertionError(f"{tag}: twin cohort launched kernels")
         if not twins:
-            if counts["batch_epilogue"] <= 0 or counts["hstep_epilogue"]:
-                raise AssertionError(f"{tag}: K10 not launched or K7 "
-                                     f"launched: {counts}")
+            if counts["batch_epilogue"] <= 0 or counts["hstep_epilogue"] \
+                    or counts["gen_expand"] <= 0:
+                raise AssertionError(f"{tag}: K10 or K15 not launched or "
+                                     f"K7 launched: {counts}")
             launches, donor, cohort_wall = counts, be, build + run
     if res["kernels"] != res["twins"]:
         raise AssertionError(f"{tag}: kernels cohort != twins cohort")
@@ -1705,8 +1855,10 @@ def phase_batch(tag="18 batch"):
         be, members, _b, _r, counts, _p = _cohort(cfgs, bt, False, dev)
         out[dev] = [_summary(m.result) + (tuple(m.result.warnings),)
                     for m in members]
-        if dev == DEVICE and counts["batch_epilogue"] <= 0:
-            raise AssertionError(f"{tag}: batchtoy cohort without K10")
+        if dev == DEVICE and (counts["batch_epilogue"] <= 0
+                              or counts["gen_expand"] <= 0):
+            raise AssertionError(f"{tag}: batchtoy cohort without K10 "
+                                 f"or K15")
     bad = out[DEVICE][-1]
     log(f"[{tag}] batchtoy cohort: bad member {bad[4]} {bad[5]}, trace "
         f"{bad[6].count('State ') if bad[6] else 0} states; cuda == cpu: "
@@ -2034,9 +2186,10 @@ def phase_full_sort(pins_4p, tag="20 full sort"):
             if twins and any(counts.values()):
                 raise AssertionError(f"{tag}: twin run launched kernels")
             if not twins:
-                if counts["fullsort_dedup"] <= 0 or counts["rank_merge"]:
-                    raise AssertionError(f"{tag}: K11 not launched or K4 "
-                                         f"launched: {counts}")
+                if counts["fullsort_dedup"] <= 0 or counts["rank_merge"] \
+                        or counts["gen_expand"] <= 0:
+                    raise AssertionError(f"{tag}: K11 or K15 not launched "
+                                         f"or K4 launched: {counts}")
                 launches, keng = counts["fullsort_dedup"], eng
         # the widest level: the step's merge inputs rebuilt as _full_sort
         # builds them
@@ -2807,6 +2960,7 @@ def main() -> int:
 
     name, count, smi = phase_device()
     phase_build()
+    phase_build_gen()
     eng, got = capture_busiest_level(os.path.join(SPECS,
                                                  "transfer_scaled.cfg"), PINS)
     table = phase_kernels(eng, got)
@@ -2834,22 +2988,30 @@ def main() -> int:
     eng, got, counts, _ = phase_reduction(
         "8 symmetry", "symtoy_scaled.tla", CFG_SYM, PINS_SYM,
         ("unpack_rows", "canon_rows", "keys_of_canon", "seen_probe",
-         "rank_merge"))
+         "rank_merge", "gen_expand"))
     table += check_canon(eng, got, counts)
+    table.append(check_gen_expand(eng, got["expand"][0],
+                                  counts["gen_expand"], "8 symmetry",
+                                  "gen_expand@sym"))
     del eng, got
     eng, got, counts, _ = phase_reduction(
         "9 view", "viewtoy_scaled.tla", CFG_VIEW, PINS_VIEW,
-        ("unpack_rows", "keys_of_view", "seen_probe", "rank_merge"))
+        ("unpack_rows", "keys_of_view", "seen_probe", "rank_merge",
+         "gen_expand", "gen_pred", "gen_value"))
     table += check_view(eng, got, counts)
+    table += check_gen_pred_value(eng, got, counts, "9 view", "@view")
     del eng, got
     eng, got, counts, por = phase_reduction(
         "10 por", "msgstoy.tla", CFG_POR, PINS_POR,
         ("unpack_rows", "keys_of", "seen_probe", "seen_probe_por",
-         "por_mask", "rank_merge"), por=True)
+         "por_mask", "rank_merge", "gen_expand"), por=True)
     got_pins = {k: por.get(k) for k in POR_PINS}
     if got_pins != POR_PINS:
         raise AssertionError(f"por counters {got_pins} != {POR_PINS}")
     table += check_por(eng, got, counts)
+    table.append(check_gen_expand(eng, got["expand"][0],
+                                  counts["gen_expand"], "10 por",
+                                  "gen_expand@por"))
     del eng, got
     phase_por_verdicts()
     mark(10)
@@ -2889,6 +3051,7 @@ def main() -> int:
     table.append(phase_obs(smi))
     mark(21)
     table += phase_mesh(counts_4p)
+    gen_summary()
     log(f"[done] {time.time() - t_start:.1f}s")
     print(f"{smi}")
     print(json.dumps({"kernels": table}))

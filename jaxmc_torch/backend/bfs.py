@@ -306,6 +306,10 @@ class TorchExplorer:
         # chip_smoke.py pass it; nothing else does)
         self.device = resolve_device(device)
         self.twins = bool(twins)
+        # the generated kernels (K15-K17), built at the end for a card
+        # engine without twins (_build_gen)
+        self._gen = None
+        self._gen_first: Dict[int, int] = {}
         self.model = model
         self.log = log if log is not None else obs.Logger(quiet=True)
         self.max_states = max_states
@@ -616,6 +620,79 @@ class TorchExplorer:
         tel.gauge("device.donation", platform != "cpu")
         tel.gauge("backend.platform", platform)
         tel.gauge("backend.profile_ns", platform)
+        # B.1 on the card: every compiled unit (each instance slot by
+        # slot, each invariant and constraint, the VIEW) as CUDA C++
+        # generated from the emitter's capture and built once for this
+        # engine (K15-K17); the emitter stays their twin and the CPU path
+        if self.device.type == "cuda" and not self.twins:
+            self._build_gen()
+
+    def _build_gen(self) -> None:
+        """Capture, generate and build this engine's units (one nvcc),
+        then route _expand to K15 and the predicate and VIEW callables
+        to K16 / K17.  A unit the generator cannot translate, or a
+        failed build, raises naming the unit: nothing runs the emitter
+        on the card instead."""
+        from ..compile import cgen
+        preds = list(self.inv_fns) + list(self.constraint_fns)
+        if not (self.compiled or preds or self.view_fn is not None):
+            return                  # every arm interpreted: no unit
+        gm = cgen.build_module(self.kc, self.W, self.compiled, preds,
+                               self.view_fn, self._lift_names)
+        gm.load()
+        self._gen = gm
+        first, i = {}, 0
+        for ca in self.compiled:
+            first[id(ca)] = i
+            i += ca.n_slots or 1
+        self._gen_first = first
+        self._gen_units_memo = None
+        ninv = len(self.inv_fns)
+        self.inv_fns = [(nm, self._gen_pred_fn(i))
+                        for i, (nm, _f) in enumerate(self.inv_fns)]
+        self.constraint_fns = [(nm, self._gen_pred_fn(ninv + i))
+                               for i, (nm, _f) in
+                               enumerate(self.constraint_fns)]
+        if self.view_fn is not None:
+            self.view_fn = self._gen_value_fn()
+
+    def _gen_cvals(self) -> Optional[torch.Tensor]:
+        """The lifted constants a generated kernel reads: the member
+        table _set_const_lanes bound ([M, L]: one row per member), or
+        this model's values when none is bound (the emitter then bakes
+        the same values)."""
+        if not self._lift_names:
+            return None
+        if self._gen.cv is None:
+            return torch.as_tensor(self._cvec[None], device=self.device)
+        return self._gen.cv
+
+    def _gen_units(self, device) -> torch.Tensor:
+        """K15's instance -> unit map for the current compiled list (a
+        demotion drops arms from it; the module keeps every unit)."""
+        key = tuple(id(ca) for ca in self.compiled)
+        memo = getattr(self, "_gen_units_memo", None)
+        if memo is None or memo[0] != key:
+            ids = [self._gen_first[id(ca)] + s for ca in self.compiled
+                   for s in range(ca.n_slots or 1)]
+            memo = (key, torch.as_tensor(np.asarray(ids, np.int32),
+                                         device=device))
+            self._gen_units_memo = memo
+        return memo[1]
+
+    def _gen_pred_fn(self, which: int) -> Callable:
+        gm = self._gen
+
+        def f(rows):
+            return ops.gen_pred(gm, which, rows, self._gen_cvals())
+        return f
+
+    def _gen_value_fn(self) -> Callable:
+        gm = self._gen
+
+        def f(rows):
+            return ops.gen_value(gm, rows, self._gen_cvals())
+        return f
 
     @staticmethod
     def _refuse_modes(model: Model, resident: bool, host_seen: bool) -> None:
@@ -731,6 +808,10 @@ class TorchExplorer:
         """(en, aok, ov [A, FC], succ [A, FC, W]): every compiled
         instance over the frontier block; slotted kernels give one
         instance row per slot, in slot order."""
+        if self._gen is not None:
+            return ops.gen_expand(self._gen, frontier,
+                                  self._gen_units(frontier.device),
+                                  self._gen_cvals())
         FC = frontier.shape[0]
         dev = frontier.device
         en = torch.empty((self.A, FC), dtype=torch.bool, device=dev)
@@ -2050,16 +2131,24 @@ class TorchExplorer:
         repeated over `rows_each` rows; None clears them.  The
         counterpart of the reference's tracer install: one member's
         value repeated over its rows is what vmap over cvec computes.
-        A no-op for engines without lifted constants."""
+        On a card engine the generated kernels take the [M, n_lift]
+        table itself.  A no-op for engines without lifted constants."""
         if not self._lift_names:
             return
         if cvecs is None:
             self.kc.const_lanes = {}
+            if self._gen is not None:
+                self._gen.cv = None
             return
         from ..compile.lanes import BL
         cv = torch.as_tensor(cvecs, dtype=torch.int32,
                              device=self.device).reshape(
                                  -1, len(self._lift_names))
+        if self._gen is not None:
+            # K15-K17 read each row's member from the table itself
+            # (row n takes member n // rows_each): no per-row lanes
+            self._gen.cv = cv
+            return
         if rows_each != 1:
             cv = cv.repeat_interleave(rows_each, dim=0)
         self.kc.const_lanes = {nm: BL(cv[:, i].contiguous())
@@ -2959,7 +3048,7 @@ class TorchExplorer:
         "live_obligations", "live_unsupported", "collect_edges",
         "_need_edges", "hybrid", "_demotable", "labels_flat", "A", "W",
         "PW", "K", "fp_mode", "key_width", "chunk", "sample_cfg",
-        "host_seen", "seen_mode_req", "_lift_names")
+        "host_seen", "seen_mode_req", "_lift_names", "_gen", "_gen_first")
 
     def _clone_from_donor(self, donor: "TorchExplorer", model: Model,
                           log, max_states, store_trace,

@@ -17,6 +17,12 @@ Integer results are int32 and wrap, as JAX's do with x64 off; `//` and
 divisor gives 0 instead of raising, since a guarded-out row may divide
 by zero (the reference's value there is never used either).  Gathers
 with a traced index clamp it into range (JAX's retrieval rule).
+
+Trace mode (compile/trace.py): a `BL` may hold a `trace.Sym` instead of
+a tensor.  Every function and method below then records a graph node
+with the same semantics instead of computing, so one capture of a
+compiled unit gives the graph that compile/cgen.py writes as CUDA C++.
+Operations over constants alone run eagerly in both modes.
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ from typing import Any, Sequence
 
 import numpy as np
 import torch
+
+from . import trace as _tr
 
 int32 = torch.int32
 bool_ = torch.bool
@@ -81,6 +89,8 @@ class BL:
     __hash__ = None
 
     def __init__(self, t: torch.Tensor):
+        if isinstance(t, _tr.Rows):
+            t = t.sym                     # the block a capture runs on
         self.t = t
 
     # ---- per-row shape ----
@@ -116,11 +126,15 @@ class BL:
         return f"BL(row_shape={self.shape}, B={self.B}, {self.dtype})"
 
     def astype(self, dtype):
+        if _sym(self):
+            return _tr.astype(self, dtype)
         return BL(self.t.to(dtype))
 
     def reshape(self, *shape):
         if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
             shape = tuple(shape[0])
+        if _sym(self):
+            return _tr.reshape(self, shape)
         return BL(self.t.reshape((self.B,) + tuple(shape)))
 
     # ---- indexing ----
@@ -135,11 +149,17 @@ class BL:
             if isinstance(i, (np.integer,)):
                 i = int(i)
             out.append(i)
+        if _sym(self):
+            return _tr.basic_index(self, tuple(out))
         return BL(self.t[(slice(None),) + tuple(out)])
 
     # ---- arithmetic / comparison ----
     def _bin(self, other, fn, reflect=False):
         a, b = (other, self) if reflect else (self, other)
+        if _traced(a, b):
+            return _tr.elementwise(_FN[fn], lambda x, y: BL._bin(
+                y if reflect else x, x if reflect else y, fn, reflect),
+                a, b)
         ta, tb = _align(a, b)
         return BL(_norm_dtype(fn(ta, tb)))
 
@@ -164,8 +184,31 @@ class BL:
     def __or__(self, o): return self._bin(o, torch.bitwise_or)
     def __ror__(self, o): return self._bin(o, torch.bitwise_or, True)
     def __xor__(self, o): return self._bin(o, torch.bitwise_xor)
-    def __invert__(self): return BL(torch.bitwise_not(self.t))
-    def __neg__(self): return BL(_norm_dtype(torch.neg(self.t)))
+    def __invert__(self):
+        if _sym(self):
+            return _tr.elementwise("bnot", BL.__invert__, self)
+        return BL(torch.bitwise_not(self.t))
+
+    def __neg__(self):
+        if _sym(self):
+            return _tr.elementwise("neg", BL.__neg__, self)
+        return BL(_norm_dtype(torch.neg(self.t)))
+
+
+# trace names of the torch functions BL._bin applies
+_FN = {torch.add: "add", torch.sub: "sub", torch.mul: "mul",
+       torch.lt: "lt", torch.le: "le", torch.gt: "gt", torch.ge: "ge",
+       torch.eq: "eq", torch.ne: "ne", torch.bitwise_and: "and",
+       torch.bitwise_or: "or", torch.bitwise_xor: "xor"}
+
+
+def _sym(x) -> bool:
+    """x is a traced value under capture (holds a trace.Sym)."""
+    return isinstance(x, BL) and isinstance(x.t, _tr.Sym)
+
+
+def _traced(*xs) -> bool:
+    return builtins.any(_sym(x) for x in xs)
 
 
 def _as_tensor(x) -> torch.Tensor:
@@ -238,6 +281,9 @@ def _gather(x: BL, idx):
         raise TypeError("advanced index only on the first row axis")
     if builtins.any(isinstance(i, (BL, np.ndarray, list)) for i in rest):
         raise TypeError("one advanced index per gather")
+    if _traced(x, ix):
+        return _tr.gather(x, ix, rest,
+                          lambda a, b: _gather(a, (b,) + tuple(rest)))
     d0 = x.t.shape[1]
     it = ix.t.to(torch.int64).clamp(0, max(d0 - 1, 0))
     xt, it = _expand_batch([x.t, it])
@@ -286,6 +332,8 @@ def reshape(x, shape):
 def where(c, a, b):
     if isinstance(c, (bool, np.bool_)):
         return a if c else b
+    if _traced(c, a, b):
+        return _tr.elementwise("where", where, c, a, b)
     tc, ta, tb = _align(c, a, b)
     if isinstance(tc, bool):
         return a if tc else b
@@ -297,6 +345,9 @@ def where(c, a, b):
 
 
 def concatenate(parts, axis=0):
+    if _traced(*parts):
+        return _tr.concatenate(parts, axis,
+                               lambda ps: concatenate(ps, axis))
     ts = [_as_tensor(p) for p in parts]
     ts = _expand_batch(ts)
     return BL(torch.cat(ts, dim=axis + 1 if axis >= 0 else axis))
@@ -313,6 +364,8 @@ def _reduce(x, axis):
 
 
 def all(x, axis=None):  # noqa: A001 — jnp name
+    if _sym(x):
+        return _tr.reduce("all", x, axis, all)
     t, d = _reduce(x, axis)
     if t.dtype != torch.bool:
         t = t != 0
@@ -320,6 +373,8 @@ def all(x, axis=None):  # noqa: A001 — jnp name
 
 
 def any(x, axis=None):  # noqa: A001 — jnp name
+    if _sym(x):
+        return _tr.reduce("any", x, axis, any)
     t, d = _reduce(x, axis)
     if t.dtype != torch.bool:
         t = t != 0
@@ -327,11 +382,15 @@ def any(x, axis=None):  # noqa: A001 — jnp name
 
 
 def sum(x, axis=None, dtype=None):  # noqa: A001 — jnp name
+    if _sym(x):
+        return _tr.reduce("sum", x, axis, sum)
     t, d = _reduce(x, axis)
     return BL(t.to(torch.int64).sum(dim=d).to(torch.int32))
 
 
 def argmax(x, axis=None):
+    if _sym(x):
+        return _tr.reduce("argmax", x, axis, argmax)
     t, d = _reduce(x, axis)
     if t.dtype == torch.bool:
         t = t.to(torch.int32)
@@ -351,6 +410,8 @@ def take(x, idx, axis=0):
 def take_along_axis(arr, indices, axis):
     if not isinstance(arr, BL):
         arr = asarray(arr)
+    if _traced(arr, indices):
+        return _tr.take_along_axis(arr, indices, axis, take_along_axis)
     it = indices.t if isinstance(indices, BL) else _np_tensor(indices)
     at, it = _expand_batch([arr.t, it.to(torch.int64)])
     d = axis + 1 if axis >= 0 else axis
@@ -361,13 +422,17 @@ def take_along_axis(arr, indices, axis):
 def clip(x, lo, hi):
     if not isinstance(x, BL):
         return int(np.clip(x, lo, hi))
+    if _sym(x):
+        return _tr.elementwise("clamp", clip, x, int(lo), int(hi))
     return BL(x.t.clamp(int(lo), int(hi)))
 
 
-def _binop(fn):
+def _binop(fn, name):
     def op(a, b):
         if not isinstance(a, BL) and not isinstance(b, BL):
             a, b = asarray(a), b
+        if _traced(a, b):
+            return _tr.elementwise(name, op, a, b)
         ta, tb = _align(a, b)
         if not isinstance(ta, torch.Tensor):
             ta = _to_tensor_op(ta, tb)
@@ -375,18 +440,18 @@ def _binop(fn):
     return op
 
 
-add = _binop(torch.add)
-subtract = _binop(torch.sub)
-multiply = _binop(torch.mul)
-equal = _binop(torch.eq)
-less = _binop(torch.lt)
-less_equal = _binop(torch.le)
-greater = _binop(torch.gt)
-greater_equal = _binop(torch.ge)
+add = _binop(torch.add, "add")
+subtract = _binop(torch.sub, "sub")
+multiply = _binop(torch.mul, "mul")
+equal = _binop(torch.eq, "eq")
+less = _binop(torch.lt, "lt")
+less_equal = _binop(torch.le, "le")
+greater = _binop(torch.gt, "gt")
+greater_equal = _binop(torch.ge, "ge")
 logical_and = _binop(lambda a, b: a.bool() & (b.bool() if isinstance(
-    b, torch.Tensor) else bool(b)))
+    b, torch.Tensor) else bool(b)), "land")
 logical_or = _binop(lambda a, b: a.bool() | (b.bool() if isinstance(
-    b, torch.Tensor) else bool(b)))
+    b, torch.Tensor) else bool(b)), "lor")
 
 
 def _tensor_pair(a, b):
@@ -396,16 +461,22 @@ def _tensor_pair(a, b):
 
 
 def maximum(a, b):
+    if _traced(a, b):
+        return _tr.elementwise("max", maximum, a, b)
     ta, tb = _tensor_pair(a, b)
     return BL(_norm_dtype(torch.maximum(ta, tb)))
 
 
 def minimum(a, b):
+    if _traced(a, b):
+        return _tr.elementwise("min", minimum, a, b)
     ta, tb = _tensor_pair(a, b)
     return BL(_norm_dtype(torch.minimum(ta, tb)))
 
 
 def floor_divide(a, b):
+    if _traced(a, b):
+        return _tr.elementwise("fdiv", floor_divide, a, b)
     ta, tb = _tensor_pair(a, b)
     z = tb == 0
     q = torch.div(ta, torch.where(z, torch.ones_like(tb), tb),
@@ -414,6 +485,8 @@ def floor_divide(a, b):
 
 
 def mod(a, b):
+    if _traced(a, b):
+        return _tr.elementwise("fmod", mod, a, b)
     ta, tb = _tensor_pair(a, b)
     z = tb == 0
     r = torch.remainder(ta, torch.where(z, torch.ones_like(tb), tb))
@@ -421,6 +494,8 @@ def mod(a, b):
 
 
 def power(a, b):
+    if _traced(a, b):
+        return _tr.elementwise("pow", power, a, b)
     ta, tb = _tensor_pair(a, b)
     return BL(_norm_dtype(torch.pow(ta, tb)))
 
@@ -430,6 +505,8 @@ def negative(a):
 
 
 def logical_not(a):
+    if _sym(a):
+        return _tr.elementwise("lnot", logical_not, a)
     if isinstance(a, BL):
         t = a.t if a.t.dtype == torch.bool else a.t != 0
         return BL(~t)
@@ -438,9 +515,12 @@ def logical_not(a):
 
 def rows_of(x: Any, n: int) -> torch.Tensor:
     """A per-row value as a plain [n, *row_shape] tensor (a static value
-    or a B=1 broadcast expanded to the block's n rows)."""
+    or a B=1 broadcast expanded to the block's n rows).  Under capture,
+    the unit's output value (a trace.Sym)."""
     if not isinstance(x, BL):
         x = asarray(x)
+    if _tr.active():
+        return _tr.output(x.t if _sym(x) else x)
     t = x.t
     if t.shape[0] != n:
         t = t.expand((n,) + tuple(t.shape[1:]))

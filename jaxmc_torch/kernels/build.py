@@ -8,6 +8,11 @@ runs at first use (never at import); all sources build in parallel,
 one nvcc each.  A missing nvcc or a failed build raises.
 
     python -m jaxmc_torch.kernels.build     # build all, print ptxas lines
+
+The generated transition kernels (K15-K17, compile/cgen.py) build the
+same way, one source per engine, at engine construction:
+`build_generated` compiles into kernels/_build/gen/<sha256 of the
+source and flags>/, so a model already built loads its library.
 """
 
 from __future__ import annotations
@@ -15,9 +20,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
+import time
 from typing import Dict, List
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -190,6 +197,101 @@ def library(name: str) -> ctypes.CDLL:
                 f.argtypes = ARGTYPES[fn]
                 f.restype = RESTYPE.get(fn, ctypes.c_int)
             _libs[name] = lib
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# the generated transition kernels (compile/cgen.py: K15-K17)
+# ---------------------------------------------------------------------------
+
+GEN_ROOT = os.path.join(BUILD_ROOT, "gen")
+GEN_ARGTYPES = {
+    "jmc_gen_expand": [_P, _P, _I64, _P, _I, _I64, _P, _P, _P, _P, _P],
+    "jmc_gen_pred": [_I, _P, _P, _I64, _I64, _P, _P],
+    "jmc_gen_value": [_P, _P, _I64, _I64, _P, _P],
+}
+_gen_libs: Dict[str, ctypes.CDLL] = {}
+# per generated source (by digest): the nvcc wall of the build this
+# process made (None: the library was already built), its ptxas lines
+# (registers, stack, spills per kernel) and its build directory
+GEN_INFO: Dict[str, dict] = {}
+
+
+def gen_digest(source: str) -> str:
+    h = hashlib.sha256()
+    h.update(" ".join(NVCC_FLAGS).encode() + b"\0" + source.encode())
+    return h.hexdigest()[:16]
+
+
+def _gen_ptxas(text: str) -> List[str]:
+    return [ln.strip() for ln in text.splitlines()
+            if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
+
+
+def _error_lines(text: str) -> List[int]:
+    """Source line numbers of nvcc's `gen.cu(123): error` lines."""
+    return [int(m.group(1)) for m in
+            re.finditer(r"gen\.cu\((\d+)\): error", text)]
+
+
+def build_generated(source: str, labels_at=None) -> ctypes.CDLL:
+    """Compile one generated source (one engine's units) with nvcc for
+    sm_90a into kernels/_build/gen/<sha256 of source and flags>/ and
+    load it: an unchanged source loads the library already built.
+    Counted in BUILDS, its ptxas lines in PTXAS["gen/<digest>"].  A
+    missing nvcc or a failed build raises, naming the units nvcc's
+    errors point at (`labels_at(lines)`)."""
+    global BUILDS
+    dig = gen_digest(source)
+    name = f"gen/{dig}"
+    lib = _gen_libs.get(dig)
+    if lib is not None:
+        return lib
+    with _lock:
+        lib = _gen_libs.get(dig)
+        if lib is not None:
+            return lib
+        out_dir = os.path.join(GEN_ROOT, dig)
+        os.makedirs(out_dir, exist_ok=True)
+        so = os.path.join(out_dir, "libgen.so")
+        src = os.path.join(out_dir, "gen.cu")
+        wall = None
+        if not os.path.exists(so):
+            try:
+                nvcc = nvcc_path()
+            except RuntimeError as ex:
+                raise RuntimeError(f"generated kernels {name}: {ex}") \
+                    from None
+            tmp_src = f"{src}.tmp{os.getpid()}"
+            with open(tmp_src, "w") as fh:
+                fh.write(source)
+            os.replace(tmp_src, src)
+            tmp = os.path.join(out_dir, f"libgen.tmp{os.getpid()}.so")
+            BUILDS += 1
+            t0 = time.time()
+            p = subprocess.run([nvcc] + NVCC_FLAGS + ["-o", tmp, src],
+                               stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True)
+            wall = time.time() - t0
+            with open(so + ".log", "w") as fh:
+                fh.write(p.stdout)
+            if p.returncode != 0:
+                units = labels_at(_error_lines(p.stdout)) if labels_at \
+                    else []
+                raise RuntimeError(
+                    f"generated kernels {name}: nvcc exit {p.returncode} "
+                    f"in {', '.join(units) or 'the kernels'}\n"
+                    + p.stdout[-4000:])
+            os.replace(tmp, so)
+        with open(so + ".log") as fh:
+            PTXAS[name] = _gen_ptxas(fh.read())
+        GEN_INFO[dig] = dict(nvcc_s=wall, ptxas=PTXAS[name], dir=out_dir)
+        lib = ctypes.CDLL(so)
+        for fn, at in GEN_ARGTYPES.items():
+            f = getattr(lib, fn)
+            f.argtypes = at
+            f.restype = ctypes.c_int
+        _gen_libs[dig] = lib
     return lib
 
 

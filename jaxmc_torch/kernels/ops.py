@@ -56,6 +56,18 @@ too, which is how the kernels are compared with them on the card.
   mesh_scalars  K14 backend/mesh.py _mk_level_tail's psum / pmax /
                     pmin: the replicated scalar vector and the
                     localization vectors from the shards' partials
+  gen_expand    K15 compile/kernel2.py compile_action2 under
+                    backend/bfs.py _expand's vmap: every grounded
+                    instance (slot by slot) over a row block, written
+                    as CUDA C++ per engine by compile/cgen.py
+  gen_pred      K16 compile/kernel2.py compile_predicate2: one
+                    invariant or constraint over a row block
+  gen_value     K17 compile/kernel2.py compile_value2: the VIEW lanes
+
+K15-K17 are generated, not written in csrc/: their twins are the
+emitter calls the engine makes without them (compile/kernel2.py over
+compile/lanes.py), with the lifted constants bound from the same
+`cvals` the kernel reads.
 """
 
 from __future__ import annotations
@@ -87,7 +99,8 @@ LAUNCHES: Dict[str, int] = {"unpack_rows": 0, "keys_of": 0,
                             "resident_compact_mesh_vc": 0,
                             "resident_compact_mesh_front": 0,
                             "mesh_route": 0, "mesh_route_gather": 0,
-                            "mesh_scalars": 0}
+                            "mesh_scalars": 0, "gen_expand": 0,
+                            "gen_pred": 0, "gen_value": 0}
 # arms the device POR filter takes (por.cu kMaxWords * 64)
 POR_MAX_ARMS = 1024
 
@@ -1540,4 +1553,132 @@ def mesh_scalars(part: torch.Tensor, FC: int, SC: int,
                               ctypes.c_int(int(FC)), ctypes.c_int(int(SC)),
                               ctypes.c_int(int(t_ovf)), _stream())
     _launch("mesh_scalars", rc)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K15-K17 the generated transition kernels (compile/cgen.py)
+# ---------------------------------------------------------------------------
+
+def _cvals(gm, cvals, N: int, dev):
+    """(table, rows per table row) of the lifted constants for a launch
+    over N > 0 rows: cvals [M, L] int32 with M dividing N (one row per
+    batch member, M = 1 for all rows alike), or a 1-element dummy when
+    the module lifts none."""
+    if not gm.L:
+        return torch.zeros((1,), dtype=torch.int32, device=dev), 1
+    if cvals is None:
+        raise ValueError(f"generated kernels: {gm.L} lifted constants and no "
+                         f"cvals")
+    _check(cvals, "cvals", 2)
+    if cvals.device != dev:
+        raise ValueError(f"cvals on {cvals.device}, rows on "
+                         f"{dev}")
+    M = cvals.shape[0]
+    if cvals.shape[1] != gm.L or M < 1 or N % M:
+        raise ValueError(f"cvals {tuple(cvals.shape)}, expected [M, "
+                         f"{gm.L}] with M dividing {N}")
+    return cvals, N // M
+
+
+def gen_expand_twin(gm, rows: torch.Tensor, units: torch.Tensor,
+                    cvals=None):
+    """The emitter loop of backend/bfs.py _expand over the instances
+    `units` (indices into gm.actions): (en, aok [A, N] bool, ov [A, N]
+    int32, succ [A, N, W] int32)."""
+    A, N = units.shape[0], rows.shape[0]
+    dev = rows.device
+    en = torch.empty((A, N), dtype=torch.bool, device=dev)
+    aok = torch.empty((A, N), dtype=torch.bool, device=dev)
+    ov = torch.empty((A, N), dtype=torch.int32, device=dev)
+    succ = torch.empty((A, N, gm.W), dtype=torch.int32, device=dev)
+    acts = gm.actions
+    with gm.consts(cvals, N):
+        for i, u in enumerate(units.tolist()):
+            a = acts[u]
+            out = a.fn(rows) if a.slot is None else a.fn(rows, a.slot)
+            en[i], aok[i], ov[i], succ[i] = out
+    return en, aok, ov, succ
+
+
+def gen_expand(gm, rows: torch.Tensor, units: torch.Tensor, cvals=None):
+    """K15: gen_expand_twin's function in one launch, one thread per
+    (instance, row); `units` int32 [A] on the rows' device."""
+    _check(rows, "gen_expand.rows", 2)
+    _check(units, "gen_expand.units", 1)
+    if rows.shape[1] != gm.W:
+        raise ValueError(f"gen_expand: rows of {rows.shape[1]} lanes, "
+                         f"module has W={gm.W}")
+    if rows.device.type == "cpu":
+        return gen_expand_twin(gm, rows, units, cvals)
+    _same_device("gen_expand", rows, units)
+    lib = gm.load()
+    A, N, W = units.shape[0], rows.shape[0], gm.W
+    dev = rows.device
+    en = torch.empty((A, N), dtype=torch.bool, device=dev)
+    aok = torch.empty((A, N), dtype=torch.bool, device=dev)
+    ov = torch.empty((A, N), dtype=torch.int32, device=dev)
+    succ = torch.empty((A, N, W), dtype=torch.int32, device=dev)
+    if A == 0 or N == 0:
+        return en, aok, ov, succ
+    cv, per = _cvals(gm, cvals, N, dev)
+    rc = lib.jmc_gen_expand(_ptr(rows), _ptr(cv), ctypes.c_int64(per),
+                            _ptr(units), ctypes.c_int(A), ctypes.c_int64(N),
+                            _ptr(en), _ptr(aok), _ptr(ov), _ptr(succ),
+                            _stream())
+    _launch("gen_expand", rc)
+    return en, aok, ov, succ
+
+
+def gen_pred_twin(gm, which: int, rows: torch.Tensor, cvals=None):
+    """The emitter's predicate `which` (index into gm.preds) over rows:
+    ok [N] bool."""
+    with gm.consts(cvals, rows.shape[0]):
+        return gm.preds[which].fn(rows)
+
+
+def gen_pred(gm, which: int, rows: torch.Tensor, cvals=None):
+    """K16: gen_pred_twin's function in one launch."""
+    _check(rows, "gen_pred.rows", 2)
+    if rows.shape[1] != gm.W:
+        raise ValueError(f"gen_pred: rows of {rows.shape[1]} lanes, "
+                         f"module has W={gm.W}")
+    if rows.device.type == "cpu":
+        return gen_pred_twin(gm, which, rows, cvals)
+    lib = gm.load()
+    N = rows.shape[0]
+    out = torch.empty((N,), dtype=torch.bool, device=rows.device)
+    if N == 0:
+        return out
+    cv, per = _cvals(gm, cvals, N, rows.device)
+    rc = lib.jmc_gen_pred(ctypes.c_int(which), _ptr(rows), _ptr(cv),
+                          ctypes.c_int64(per), ctypes.c_int64(N), _ptr(out),
+                          _stream())
+    _launch("gen_pred", rc)
+    return out
+
+
+def gen_value_twin(gm, rows: torch.Tensor, cvals=None):
+    """The emitter's VIEW over rows: [N, VW] int32."""
+    with gm.consts(cvals, rows.shape[0]):
+        return gm.value.fn(rows).reshape(rows.shape[0], -1)
+
+
+def gen_value(gm, rows: torch.Tensor, cvals=None):
+    """K17: gen_value_twin's function in one launch."""
+    _check(rows, "gen_value.rows", 2)
+    if gm.value is None or rows.shape[1] != gm.W:
+        raise ValueError(f"gen_value: no VIEW unit for rows of "
+                         f"{rows.shape[1]} lanes")
+    if rows.device.type == "cpu":
+        return gen_value_twin(gm, rows, cvals)
+    lib = gm.load()
+    N = rows.shape[0]
+    out = torch.empty((N, gm.VW), dtype=torch.int32, device=rows.device)
+    if N == 0:
+        return out
+    cv, per = _cvals(gm, cvals, N, rows.device)
+    rc = lib.jmc_gen_value(_ptr(rows), _ptr(cv), ctypes.c_int64(per),
+                           ctypes.c_int64(N), _ptr(out), _stream())
+    _launch("gen_value", rc)
     return out

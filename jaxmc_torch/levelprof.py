@@ -9,7 +9,8 @@ Builds TorchExplorer on the CUDA card and runs the search three times:
      intervals of every kernel, copy and memset it ran, the idle share
      is 1 - busy/wall, and the top kernels are ranked by device time;
   3. with a synchronise after each stage of the level step — unpack
-     (K1), expand (the emitter), keys (K2, and the VIEW's emitter),
+     (K1), expand (K15 gen_expand; the emitter with twins), keys (K2,
+     and the VIEW's K17),
      canon (K5, under SYMMETRY), por (K3 + K6, with --por), merge
      (sort + K3 + K4), predicates (CONSTRAINTs and invariants) — and
      around the whole

@@ -1,12 +1,13 @@
-"""The CUDA kernels of the torch port (K1-K14) against their plain
+"""The CUDA kernels of the torch port (K1-K17) against their plain
 PyTorch twins, on the card, at the shapes the engines give them, the
 level engine on the card against the corpus pins, with SYMMETRY, VIEW
 and --por among them, the host-seen engine on the card against the
 same run on the CPU, PROPERTYs on both engines, a batch cohort, the
 full-sort step, checkpoint/resume on the card against the CPU, the
-preflight probe (K12) and the oracle's gpu verdict, and the mesh
+preflight probe (K12) and the oracle's gpu verdict, the mesh
 engine's exchange (K13), scalar vector (K14) and runs on the card
-against the CPU.
+against the CPU, and the generated transition kernels (K15 gen_expand,
+K16 gen_pred, K17 gen_value) against the emitter.
 
 Needs a CUDA card and nvcc; elsewhere every test skips with the reason.
 Run on the card with:  python -m pytest -m gpu tests/test_torch_cuda.py
@@ -924,3 +925,121 @@ def test_mesh_on_the_card_equals_the_cpu(card, spec, cfg, D, kw):
                 else "mesh_route"
             assert ops.LAUNCHES[route] > 0 and ops.LAUNCHES["mesh_scalars"] > 0
     assert res["cuda"] == res["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# K15-K17: the generated transition kernels
+# ---------------------------------------------------------------------------
+
+def _gen_engine(spec, cfg, **kw):
+    """A card engine (which builds its generated units) and rows of its
+    layout: the init states and a few levels of their successors."""
+    from jaxmc_torch.backend.bfs import TorchExplorer
+    from jaxmc_torch.kernels import ops
+    from jaxmc_torch.session import load_model
+    m = load_model(os.path.join(SPECS, spec),
+                   os.path.join(SPECS, cfg) if cfg else None)
+    eng = TorchExplorer(m, device="cuda", **kw)
+    assert eng._gen is not None and eng._gen.lib is not None
+    rows = torch.as_tensor(np.stack([eng.layout.encode(s)
+                                     for s in eng.init_states]),
+                           device="cuda")
+    units = eng._gen_units(rows.device)
+    for _ in range(4):
+        en, _aok, _ov, succ = ops.gen_expand_twin(eng._gen, rows, units)
+        if not bool(en.any()):
+            break
+        rows = torch.cat([rows, torch.unique(succ[en], dim=0)])[:20000]
+    return eng, rows.contiguous(), units
+
+
+@pytest.mark.parametrize("spec,cfg", [
+    ("transfer_scaled.tla", "transfer_scaled.cfg"),
+    ("msgstoy.tla", "msgstoy.cfg"),                  # slotted instances
+    ("pcal_intro_buggy.tla", None),
+])
+def test_gen_expand_matches_twin(card, spec, cfg):
+    """K15 against the emitter's loop, bit-exact, and its counter
+    moves once per launch."""
+    from jaxmc_torch.kernels import ops
+    eng, rows, units = _gen_engine(spec, cfg)
+    ops.reset_launches()
+    k = ops.gen_expand(eng._gen, rows, units)
+    assert ops.LAUNCHES["gen_expand"] == 1
+    t = ops.gen_expand_twin(eng._gen, rows, units)
+    torch.cuda.synchronize()
+    for a, b in zip(k, t):
+        _eq(a, b)
+    assert ops.LAUNCHES["gen_expand"] == 1
+    # an instance subset (a demotion's) and an empty block
+    sub = units[::2].contiguous()
+    for a, b in zip(ops.gen_expand(eng._gen, rows, sub),
+                    ops.gen_expand_twin(eng._gen, rows, sub)):
+        _eq(a, b)
+    assert all(x.shape[1] == 0 for x in
+               ops.gen_expand(eng._gen, rows[:0].contiguous(), units))
+
+
+def test_gen_pred_and_value_match_twins(card):
+    """K16 (every invariant) and K17 (the VIEW) of viewtoy_scaled against
+    the emitter, bit-exact, with their counters."""
+    from jaxmc_torch.kernels import ops
+    eng, rows, _units = _gen_engine("viewtoy_scaled.tla",
+                                    "viewtoy_scaled.cfg")
+    gm = eng._gen
+    ops.reset_launches()
+    for w in range(len(gm.preds)):
+        _eq(ops.gen_pred(gm, w, rows), ops.gen_pred_twin(gm, w, rows))
+    _eq(ops.gen_value(gm, rows), ops.gen_value_twin(gm, rows))
+    assert ops.LAUNCHES["gen_pred"] == len(gm.preds) > 0
+    assert ops.LAUNCHES["gen_value"] == 1
+
+
+def test_gen_lifted_constants_match_twin(card):
+    """K15 and K16 of a lifted-constant (batch) engine read each row's
+    constants: equal to the emitter with the same lanes bound."""
+    from jaxmc_torch.analyze.bounds import liftable_constants
+    from jaxmc_torch.kernels import ops
+    from jaxmc_torch.session import load_model
+    ms = [load_model(os.path.join(SPECS, "batchtoy.tla"),
+                     os.path.join(SPECS, f"batchtoy_{c}.cfg"))
+          for c in "abcd"]
+    lift = liftable_constants(ms[0])
+    eng, rows, units = _gen_engine("batchtoy.tla", "batchtoy_a.cfg",
+                                   host_seen=True, lift_consts=lift)
+    cv = np.asarray([[int(m.defs[n]) for n in lift] for m in ms], np.int32)
+    rng = np.random.default_rng(0)
+    per_row = torch.as_tensor(cv[rng.integers(0, 4, rows.shape[0])],
+                              device="cuda").contiguous()
+    gm = eng._gen
+    for a, b in zip(ops.gen_expand(gm, rows, units, per_row),
+                    ops.gen_expand_twin(gm, rows, units, per_row)):
+        _eq(a, b)
+    for w in range(len(gm.preds)):
+        _eq(ops.gen_pred(gm, w, rows, per_row),
+            ops.gen_pred_twin(gm, w, rows, per_row))
+    # a member table: one member per N/4 rows, as the batched step binds
+    table = torch.as_tensor(cv, device="cuda").contiguous()
+    r4 = rows[:rows.shape[0] // 4 * 4].contiguous()
+    for a, b in zip(ops.gen_expand(gm, r4, units, table),
+                    ops.gen_expand_twin(gm, r4, units, table)):
+        _eq(a, b)
+
+
+def test_generated_kernels_drive_every_engine(card):
+    """The level, host-seen and resident engines on the card launch K15
+    and equal their twin runs."""
+    from jaxmc_torch.backend.bfs import TorchExplorer
+    from jaxmc_torch.kernels import ops
+    from jaxmc_torch.session import load_model
+    for kw in ({}, dict(host_seen=True, chunk=4096),
+               dict(resident=True, chunk=4096)):
+        res = {}
+        for twins in (False, True):
+            m = load_model(os.path.join(SPECS, "msgstoy.tla"),
+                           os.path.join(SPECS, "msgstoy.cfg"))
+            ops.reset_launches()
+            r = TorchExplorer(m, twins=twins, **kw).run()
+            res[twins] = (r.ok, r.distinct, r.generated, r.diameter)
+            assert (ops.LAUNCHES["gen_expand"] > 0) != twins, kw
+        assert res[False] == res[True], kw

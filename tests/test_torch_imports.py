@@ -1,6 +1,6 @@
 """The port stands alone: no file of jaxmc_torch/ and not chip_smoke.py
-imports jax or anything of jaxmc, and the engine never falls back to
-the CPU by itself."""
+imports jax or anything of jaxmc, the engine never falls back to the
+CPU by itself, and a CPU engine builds no generated kernel."""
 
 import ast
 import os
@@ -42,6 +42,36 @@ def test_no_jax_or_jaxmc_import(path):
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in ("jax", "jaxlib", "jaxmc")]
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+def test_generated_kernel_modules_are_checked():
+    """The capture and the code generator of the generated kernels
+    (K15-K17) are port files like any other: no jax, no jaxmc."""
+    rel = {os.path.relpath(p, ROOT) for p in _port_files()}
+    assert {"jaxmc_torch/compile/trace.py",
+            "jaxmc_torch/compile/cgen.py"} <= rel
+
+
+def test_cpu_engine_builds_no_generated_source(monkeypatch):
+    """A CPU engine keeps the emitter: no capture, no source, no nvcc."""
+    from jaxmc_torch.backend.bfs import TorchExplorer
+    from jaxmc_torch.compile import cgen
+    from jaxmc_torch.kernels import build
+    from jaxmc_torch.session import load_model
+
+    def boom(*a, **kw):
+        raise AssertionError("generated build on a CPU engine")
+
+    monkeypatch.setattr(cgen, "build_module", boom)
+    monkeypatch.setattr(build, "build_generated", boom)
+    monkeypatch.setattr(build, "nvcc_path", boom)
+    before = build.BUILDS
+    spec = os.path.join(ROOT, "specs", "constoy")
+    eng = TorchExplorer(load_model(spec + ".tla", spec + ".cfg"),
+                        device="cpu")
+    assert eng._gen is None
+    assert eng.run().distinct == 21
+    assert build.BUILDS == before
 
 
 def test_default_device_is_the_card():
