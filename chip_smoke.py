@@ -9,7 +9,9 @@ points: the level engine, the chunked host-seen engine, the resident
 engine, the out-of-core seen tiers, temporal and refinement PROPERTYs,
 cross-model batching, checkpoints, resume and drain, the full-sort
 level step, the telemetry artifacts, the profiler and the backend
-oracle, and the sharded mesh engine with its multi-process runner.
+oracle, the sharded mesh engine with its multi-process runner, the
+session stages and the CLI's other subcommands, the corpus sweep, and
+the mesh scaling bench with its phase probe.
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
 
@@ -175,6 +177,27 @@ Phases (any failure raises; the exit code is then not 0):
                truncation checkpoint and resume of the 4-process model at
                D = 4; the multi-process runner (backend/multihost.py) at
                world size 1 on NCCL to transfer_scaled's pins
+ 23 session    the 4-process model through CheckSession's stages on the
+               card (parse, analyze, compile, explore, and explore again
+               on the built engine: no nvcc build, equal counts and
+               launches), through the CLI with --analyze warn
+               --metrics-out (the stage spans in the artifact), `info`,
+               `simulate`, and an --analyze strict refusal on linttoy
+               that builds and launches nothing
+ 24 sweep      `python -m jaxmc_torch sweep --backend jax` in this process
+               (JAXMC_SWEEP_INPROC=1) on the card: every non-slow
+               repo-local corpus case passes with the manifest's pins and
+               mode pins, each with compiled instances launching K15;
+               the cases that need the reference corpus skip with its
+               reason where it is absent
+ 25 meshbench  `python -m jaxmc_torch.meshbench bench` on the 4-process
+               model at D = 1, 2, 4 shards on the card (a child process
+               each): the timed run's gates (no nvcc build in the window,
+               host_syncs <= levels) and counts equal to phase 7's, then
+               the phase probe (B.12d): the expand, exchange, rank merge
+               and full-sort merge walls over four levels, beside K13's
+               and the merges' launches; the jaxmc.multichip/1 artifact
+               goes to chiprun_out/meshbench_4p.json
 Every kernel run of every phase launches K15 (gen_expand) and no twin
 run does: the generated kernels are held against the emitter end to
 end, on every engine.  Before the last lines, one "[gen]" line per
@@ -2951,6 +2974,278 @@ def phase_mesh(pins_4p, tag="22 mesh"):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phases 23-25: the session stages and the CLI, the corpus sweep, the mesh
+# scaling bench with its phase probe
+# ---------------------------------------------------------------------------
+
+# the artifacts of phases 23-25 (removed after, but the bench's artifact,
+# which goes to the gitignored chiprun_out/)
+STAGES_DIR = os.path.join(ROOT, "jaxmc_torch", "kernels", "_build", "stages")
+BENCH_OUT = os.path.join(ROOT, "chiprun_out", "meshbench_4p.json")
+# the stage spans of a device check's artifact, in order, under --analyze
+# (the lint runs before the load)
+STAGE_SPANS = ("analyze", "load", "device_init", "engine_build", "search")
+
+
+def _main_captured(main, argv, env=None):
+    """An entry point's main(argv) in this process: (exit code, stdout
+    lines, stderr)."""
+    import contextlib
+    import io
+    out, err = io.StringIO(), io.StringIO()
+    old = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = main(argv)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return rc, out.getvalue().splitlines(), err.getvalue()
+
+
+def phase_session(pins_4p, tag="23 session"):
+    """The 4-process model through CheckSession's stages on the card
+    (parse, analyze, compile, explore, then explore again on the built
+    engine: no nvcc build, equal counts), the same model through the
+    CLI with --analyze warn --metrics-out (the stage spans in the
+    artifact, the reference's schema), `info` and `simulate`, and an
+    --analyze strict refusal that builds and launches nothing."""
+    from jaxmc_torch import cli, obs
+    from jaxmc_torch.kernels import build, ops
+    from jaxmc_torch.obs.schema import validate_summary
+    from jaxmc_torch.session import CheckSession, SessionConfig
+    spec = os.path.join(SPECS, "transfer_scaled.tla")
+    os.makedirs(STAGES_DIR, exist_ok=True)
+    try:
+        sess = CheckSession(SessionConfig(
+            spec=spec, cfg=CFG_4P, backend="torch", analyze="warn",
+            no_trace=True, progress_every=1e9), tel=obs.Telemetry())
+        t0 = time.time()
+        kind = sess.parse()
+        diags = sess.analyze()
+        t1 = time.time()
+        sess.compile()
+        t2 = time.time()
+        walls, launches = [], []
+        for _ in range(2):
+            b0 = build.BUILDS
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t3 = time.time()
+            r = sess.explore()
+            torch.cuda.synchronize()
+            walls.append(time.time() - t3)
+            launches.append({k: v for k, v in ops.LAUNCHES.items() if v})
+            got = (r.distinct, r.generated, r.diameter)
+            if got != pins_4p or not r.ok:
+                raise AssertionError(f"{tag}: explore {got} != {pins_4p}")
+            if launches[-1].get("gen_expand", 0) <= 0:
+                raise AssertionError(f"{tag}: K15 not launched")
+        if build.BUILDS != b0:
+            raise AssertionError(f"{tag}: the warm re-run built again")
+        d = sess.describe()
+        log(f"[{tag}] stages on {sess.engine.device}: parse ({kind}) + "
+            f"analyze ({len(diags)} diagnostics) {t1 - t0:.2f}s, compile "
+            f"{t2 - t1:.2f}s (layout {d['layout_sig'][:12]}), explore "
+            f"{walls[0]:.3f}s, re-explore {walls[1]:.3f}s on the built "
+            f"engine; {pins_4p}; describe {d}; launches {launches[0]}")
+        if (d["stage"], d["explore_count"]) != ("explore", 2) or \
+                launches[0] != launches[1]:
+            raise AssertionError(f"{tag}: describe {d}, launches "
+                                 f"{launches}")
+        del sess
+        # the CLI over the same stages
+        art = os.path.join(STAGES_DIR, "m.json")
+        rc, out, err = _main_captured(cli.main, [
+            "check", spec, "--cfg", CFG_4P, "--no-trace", "--quiet",
+            "--analyze", "warn", "--metrics-out", art])
+        with open(art) as fh:
+            summ = json.load(fh)
+        validate_summary(summ, check_run=True)
+        spans = [p["name"] for p in summ["phases"]
+                 if p["name"] in STAGE_SPANS]
+        res = summ["result"]
+        log(f"[{tag}] cli check --analyze warn --metrics-out: exit {rc}, "
+            f"{out[-1] if out else ''}; spans {spans}; result "
+            f"{res['distinct']}/{res['generated']}/{res['diameter']}")
+        if rc != 0 or spans != list(STAGE_SPANS) or \
+                (res["distinct"], res["generated"], res["diameter"]) \
+                != pins_4p or summ["env"]["platform"] != \
+                ("gpu" if DEVICE == "cuda" else "cpu"):
+            raise AssertionError(f"{tag}: cli check {rc} {spans} {res}\n"
+                                 f"{err[-2000:]}")
+        rc, out, _ = _main_captured(cli.main, ["info", spec, "--cfg",
+                                               CFG_4P])
+        log(f"[{tag}] info: exit {rc}; " + " | ".join(
+            ln.strip() for ln in out if not ln.startswith("    ")))
+        if rc != 0 or not any(ln.startswith("  batch:") for ln in out) \
+                or not any("independence:" in ln for ln in out):
+            raise AssertionError(f"{tag}: info {rc} {out}")
+        rc, out, _ = _main_captured(cli.main, [
+            "simulate", os.path.join(SPECS, "pcal_intro_buggy.tla"),
+            "--seed", "0"])
+        rc2, out2, _ = _main_captured(cli.main, [
+            "simulate", spec, "--cfg", CFG_4P, "--seed", "0"])
+        log(f"[{tag}] simulate: pcal_intro_buggy exit {rc} ({out[0]}); "
+            f"the 4-process model exit {rc2} ({out2[-1]})")
+        if rc != 1 or "Assertion failed" not in out[0] or rc2 != 0:
+            raise AssertionError(f"{tag}: simulate {rc} {rc2}")
+        b0 = build.BUILDS
+        ops.reset_launches()
+        rc, out, err = _main_captured(cli.main, [
+            "check", os.path.join(SPECS, "linttoy.tla"), "--analyze",
+            "strict"])
+        refused = err.strip().splitlines()[-1]
+        log(f"[{tag}] --analyze strict on linttoy: exit {rc}, "
+            f"{err.count('analyze: ')} diagnostics, {refused}")
+        if rc != 2 or "--analyze=strict refused the run" not in refused \
+                or build.BUILDS != b0 or any(ops.LAUNCHES.values()):
+            raise AssertionError(f"{tag}: strict refusal {rc} {err}")
+    finally:
+        shutil.rmtree(STAGES_DIR, ignore_errors=True)
+
+
+def phase_sweep(tag="24 sweep"):
+    """`python -m jaxmc_torch sweep --backend jax` in this process
+    (JAXMC_SWEEP_INPROC=1) on the card: every non-slow repo-local case
+    passes, every case that needs the absent reference corpus skips
+    with its reason, and every case with compiled instances launches
+    K15 (the engines are built with twins=False, so no twin runs)."""
+    from jaxmc_torch import cli, corpus
+    from jaxmc_torch.kernels import ops
+    per_case = {}
+    real = corpus.run_case
+
+    def counted(case, backend="interp", device=None):
+        ops.reset_launches()
+        out = real(case, backend, device)
+        per_case[case.cfg or case.spec] = (
+            out[0], out[3], ops.LAUNCHES["gen_expand"],
+            ops.LAUNCHES["hstep_epilogue"])
+        return out
+
+    os.makedirs(STAGES_DIR, exist_ok=True)
+    art = os.path.join(STAGES_DIR, "sweep.json")
+    corpus.run_case = counted
+    try:
+        t0 = time.time()
+        rc, out, err = _main_captured(
+            cli.main, ["sweep", "--backend", "jax", "--metrics-out", art],
+            env={"JAXMC_SWEEP_INPROC": "1"})
+        wall = time.time() - t0
+        with open(art) as fh:
+            summ = json.load(fh)
+    finally:
+        corpus.run_case = real
+        shutil.rmtree(STAGES_DIR, ignore_errors=True)
+    for ln in out:
+        if not ln.startswith("[SKIP]"):
+            log(f"[{tag}] {ln}")
+    log(f"[{tag}] {sum(ln.startswith('[SKIP]') for ln in out)} SKIP lines; "
+        f"wall {wall:.1f}s; K15 launches per case "
+        f"{ {k: v[2] for k, v in per_case.items() if v[0] == 'pass'} }")
+    bad = []
+    for rec in summ["cases"]:
+        c = next(c for c in corpus.CASES if (c.cfg or c.spec) ==
+                 rec["case"])
+        st, mode, k15, _k7 = per_case[rec["case"]]
+        if c.needs_reference() and not corpus.have_reference():
+            ok = st == "skip" and rec["detail"] == \
+                corpus.reference_missing()
+        else:
+            ok = st == "pass" and (mode == "interp-arms" or k15 > 0)
+        if not ok:
+            bad.append((rec["case"], st, mode, k15, rec["detail"]))
+    if rc != 0 or bad or summ["tallies"]["fail"]:
+        raise AssertionError(f"{tag}: exit {rc}, {bad}\n{err[-2000:]}")
+
+
+def _probe_bounds(sh, levels):
+    """Byte bounds (ms) of the probe's phases over `levels` levels at the
+    shapes they ran at (mesh.probe_shapes: the run's capacities, whatever
+    the probed levels' occupancy): expand reads the packed frontier and
+    writes every candidate's key, row and validity; the exchange reads
+    those and writes the received blocks (a2a: key, row and source; the
+    gather's masked keys and validity); a merge reads the received block
+    and the seen shard and writes the merged shard and the new frontier
+    with its sources (both strategies compute the same function)."""
+    D, FC, SC, C, R = sh["D"], sh["FC"], sh["SC"], sh["C"], sh["R"]
+    K, PW = sh["K"], sh["PW"]
+    blk = D * C * ((K + PW) * 4 + 1)
+    out_x = D * R * (K + PW + 1) * 4 if sh["exchange"] == "a2a" \
+        else D * R * K * 4 + R
+    merge = D * (R * (K + PW + 1) * 4 + 2 * SC * K * 4 + FC * (PW + 1) * 4)
+    return {ph: _bound(nb * levels, 0)[0]
+            for ph, nb in (("expand", D * FC * PW * 4 + blk),
+                           ("exchange", blk + out_x), ("merge", merge))}
+
+
+def phase_meshbench(pins_4p, tag="25 meshbench"):
+    """`python -m jaxmc_torch.meshbench bench` on the 4-process model at
+    D = 1, 2, 4 shards on the card, each point in a child process: a
+    warm-up run, the timed run (no nvcc build in its window, host_syncs
+    <= levels), then the phase probe (B.12d: expand, exchange, rank and
+    full-sort merges as separately timed calls).  Every point's counts
+    equal the level engine's in this script.  The jaxmc.multichip/1
+    artifact goes to chiprun_out/.  On one card the exchange is K13
+    alone (no collective)."""
+    from jaxmc_torch import meshbench
+    out_dir = os.path.join(STAGES_DIR, "meshbench")
+    os.makedirs(out_dir, exist_ok=True)
+    os.makedirs(os.path.dirname(BENCH_OUT), exist_ok=True)
+    try:
+        t0 = time.time()
+        rc, out, err = _main_captured(meshbench.main, [
+            "bench", "--devices", "1,2,4", "--rung",
+            "specs/transfer_scaled.tla=" + os.path.relpath(CFG_4P, ROOT),
+            "--out-dir", out_dir, "--out", BENCH_OUT, "--timeout", "300"])
+        wall = time.time() - t0
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    for ln in out:
+        log(f"[{tag}] {ln}")
+    if rc != 0:
+        raise AssertionError(f"{tag}: meshbench bench exit {rc}\n"
+                             f"{err[-3000:]}")
+    with open(BENCH_OUT) as fh:
+        art = json.load(fh)
+    (rung,) = art["rungs"]
+    for pt in rung["curve"]:
+        got = (pt["distinct"], pt["generated"], pt["diameter"])
+        pw, pl = pt["phase_walls"], pt["phase_launches"]
+        bd = _probe_bounds(pt["phase_shapes"], pw["levels"])
+        log(f"[{tag}] D={pt['devices']} probe shapes {pt['phase_shapes']}; "
+            f"byte bounds over its {pw['levels']} levels: expand "
+            f"{bd['expand']:.4f} ms, exchange {bd['exchange']:.4f} ms, "
+            f"each merge {bd['merge']:.4f} ms (3.35 TB/s)")
+        log(f"[{tag}] D={pt['devices']} {pt['exchange']}: {got}, wall "
+            f"{pt['wall_s']}s ({pt['states_per_sec']:,.0f} st/s), "
+            f"recompiles {pt['window_recompiles']}, host_syncs "
+            f"{pt['host_syncs']}/{pt['levels']} levels; probe over "
+            f"{pw['levels']} levels: expand {pw['expand_s']}s, exchange "
+            f"{pw['exchange_s']}s (K13 launches "
+            f"{pl['mesh_route'] + pl['mesh_route_gather']}), merge_rank "
+            f"{pw['merge_rank_s']}s (K3 {pl['seen_probe']}, K4 "
+            f"{pl['rank_merge']}, K8 mesh_vc "
+            f"{pl['resident_compact_mesh_vc']}), merge_fullsort "
+            f"{pw['merge_fullsort_s']}s (K11 {pl['fullsort_dedup']}), "
+            f"step {pw.get('step_s')}s over {pw.get('step_levels')} "
+            f"levels, hot share {pw.get('hot_share')}")
+        if got != pins_4p or pt["window_recompiles"] or \
+                pt["host_syncs"] > pt["levels"] or pw["levels"] < 1 or \
+                min(pl["gen_expand"], pl["seen_probe"], pl["rank_merge"],
+                    pl["fullsort_dedup"],
+                    pl["mesh_route"] + pl["mesh_route_gather"]) <= 0:
+            raise AssertionError(f"{tag}: point {pt}")
+    log(f"[{tag}] artifact {os.path.relpath(BENCH_OUT, ROOT)}; "
+        f"{wall:.1f}s")
+
+
 def main() -> int:
     t_start = time.time()
 
@@ -3051,6 +3346,10 @@ def main() -> int:
     table.append(phase_obs(smi))
     mark(21)
     table += phase_mesh(counts_4p)
+    mark(22)
+    phase_session(counts_4p)
+    phase_sweep()
+    phase_meshbench(counts_4p)
     gen_summary()
     log(f"[done] {time.time() - t_start:.1f}s")
     print(f"{smi}")

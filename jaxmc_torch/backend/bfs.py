@@ -84,7 +84,8 @@ import numpy as np
 import torch
 
 from .. import obs
-from ..analyze import bounds_enabled, infer_state_bounds
+from ..analyze import (bounds_enabled, infer_state_bounds,
+                       predict_arm_demotions, predict_enabled)
 from ..compile.ground import ground_arm, split_arms
 from ..compile.kernel2 import (KernelCtx, OV_DEMOTED, OV_PACK,
                                build_layout2, compile_action2,
@@ -266,7 +267,8 @@ class TorchExplorer:
                  checkpoint_path: Optional[str] = None,
                  checkpoint_every: float = 600.0,
                  resume_from: Optional[str] = None,
-                 final_checkpoint: bool = False):
+                 final_checkpoint: bool = False,
+                 pin_interp_arms: bool = False):
         # cross-model batching: `lift_consts` compiles the named
         # CONSTANTs as per-row inputs of the emitter instead of baked
         # scalars, so one engine serves every model that differs only in
@@ -336,6 +338,9 @@ class TorchExplorer:
         self.extra_samples = list(extra_samples or [])
         self.relayouts_left = relayouts_left
         self.seen_mode_req = seen_mode
+        # the corpus manifest's interp-arms pin: every arm goes to the
+        # interpreter and no arm is grounded or built
+        self.pin_interp_arms = bool(pin_interp_arms)
         self._last_frontier_np: Optional[np.ndarray] = None
         self._refuse_modes(model, self.resident, self.host_seen)
 
@@ -393,7 +398,27 @@ class TorchExplorer:
         # frontier states (host_seen mode only) instead of rejecting
         # the spec
         self.fb_arms: List[Tuple[Any, str]] = []  # (ActionArm, reason)
-        for ai, arm in enumerate(self.arms):
+        if self.pin_interp_arms:
+            self.fb_arms = [(arm, "pinned interp-arms (corpus "
+                                  "manifest): kernel construction "
+                                  "skipped") for arm in self.arms]
+        # statically predicted demotions (analyze/verdicts.py): an arm
+        # the compiler is certain to demote skips grounding and its
+        # build; the verdict is the build-time reason string
+        self.arm_verdicts: Dict[int, str] = {}
+        if not self.pin_interp_arms and predict_enabled() and self.arms:
+            with tel.span("analyze_arms", arms=len(self.arms)):
+                self.arm_verdicts = predict_arm_demotions(model, self.arms)
+            if self.arm_verdicts:
+                tel.counter("analyze.predicted_demotions",
+                            len(self.arm_verdicts))
+                tel.gauge("analyze.arm_verdicts",
+                          {(self.arms[i].label or "Next"): r
+                           for i, r in sorted(self.arm_verdicts.items())})
+        for ai, arm in enumerate(() if self.pin_interp_arms else self.arms):
+            if ai in self.arm_verdicts:
+                self.fb_arms.append((arm, self.arm_verdicts[ai]))
+                continue
             try:
                 with tel.span("compile_arm", arm=arm.label or "Next"):
                     gas = ground_arm(model, arm,
@@ -3046,9 +3071,10 @@ class TorchExplorer:
         "fb_cons", "inv_fns", "constraint_fns", "canon", "_sym_fallback",
         "sym_identity", "view_fn", "view_width", "refiners", "unrefined",
         "live_obligations", "live_unsupported", "collect_edges",
-        "_need_edges", "hybrid", "_demotable", "labels_flat", "A", "W",
-        "PW", "K", "fp_mode", "key_width", "chunk", "sample_cfg",
-        "host_seen", "seen_mode_req", "_lift_names", "_gen", "_gen_first")
+        "_need_edges", "hybrid", "_demotable", "labels_flat",
+        "arm_verdicts", "A", "W", "PW", "K", "fp_mode", "key_width",
+        "chunk", "sample_cfg", "host_seen", "seen_mode_req", "_lift_names",
+        "_gen", "_gen_first")
 
     def _clone_from_donor(self, donor: "TorchExplorer", model: Model,
                           log, max_states, store_trace,
@@ -3069,6 +3095,7 @@ class TorchExplorer:
         self.store_trace = store_trace
         self.progress_every = progress_every
         self.resident = False
+        self.pin_interp_arms = False
         self._res_caps_hint = None
         self.extra_samples = []
         # a relayout restart rebuilds layout and units per member, which

@@ -212,6 +212,10 @@ class MeshExplorer(TorchExplorer):
         self._max_bucket = 0
         self._shard_balance: Optional[float] = None
         self._supersteps = 0
+        # the capacities the last resident run ended at (SC, FC, VC):
+        # probe_phase_walls times its phases at them; a run starts from
+        # the caller's mesh_caps regardless
+        self._run_caps: Dict[str, Optional[int]] = {}
         self._lvl_FC: List[int] = []
         self._levels: List[Tuple[np.ndarray, Optional[np.ndarray], int]] = []
         self._local = _Local(self)
@@ -426,18 +430,20 @@ class MeshExplorer(TorchExplorer):
                     front_src=front_src, front_count=front_count)
 
     def _merge(self, seen_d, scount: int, gkeys, gcand, gsrc, SC: int,
-               R: int, VC: Optional[int]) -> dict:
+               R: int, VC: Optional[int], merge: Optional[str] = None
+               ) -> dict:
         """One shard's merge-dedup (mesh._merge_fn).  "rank": compact the
         valid exchanged rows to VC (K8 site mesh_vc, stable, so the
         candidate order holds), sort them, probe and rank-merge (K3, K4).
         "fullsort": one stable sort of the masked seen shard and the
         exchanged keys, then K11.  seen_count2 is the true need before
-        any crop to SC, so growth is strategy-blind."""
+        any crop to SC, so growth is strategy-blind.  `merge` overrides
+        the engine's strategy (the phase probe times both)."""
         dev = gkeys.device
         K = self.K
         inv_key = ops._invalid_key(K, dev)
         z = torch.zeros((), dtype=torch.int64, device=dev)
-        if self.merge == "fullsort":
+        if (merge or self.merge) == "fullsort":
             seen_m = seen_d.clone()
             seen_m[scount:] = inv_key
             allk = torch.cat([seen_m, gkeys])
@@ -487,6 +493,39 @@ class MeshExplorer(TorchExplorer):
             slot = torch.where(hit, torch.argmax(bad.to(torch.int32)), slot)
         return which, slot
 
+    def _expand_shards(self, frontier, fcounts, n: int, C: int):
+        """The level's expansion: _block (K1, K15, K8 mesh_block, K2) on
+        each of the n shards, stacked for the exchange.  Returns ckeys
+        [n, C, K], cand [n, C, PW], cvalid [n, C] and each shard's
+        remaining block dict."""
+        dev = self.device
+        ckeys = torch.empty((n, C, self.K), dtype=torch.int32, device=dev)
+        cand = torch.empty((n, C, self.PW), dtype=torch.int32, device=dev)
+        cvalid = torch.empty((n, C), dtype=torch.bool, device=dev)
+        rows = []
+        for m in range(n):
+            b = self._block(frontier[m], fcounts[m])
+            ckeys[m], cand[m], cvalid[m] = (b.pop("ckeys"), b.pop("cand"),
+                                            b.pop("cvalid"))
+            rows.append(b)
+        return ckeys, cand, cvalid, rows
+
+    def _exchange(self, xchg, ckeys, cand, cvalid, R: int, B: int, SB: int):
+        """The level's owner-routed exchange over xchg (K13 for a2a, the
+        all-gather otherwise).  Returns per-shard received keys, rows
+        and sources, the gather's edge validity (None for a2a) and the
+        [n, 3] route stats."""
+        n, dev = xchg.n, self.device
+        if self.exchange == "a2a":
+            obs.note_buffer("mesh.a2a_buckets",
+                            2 * self.D * R * (self.K + self.PW + 1) * 4)
+            gk, gc, gs, stats = xchg.route_a2a(ckeys, cand, cvalid, B, SB)
+            return gk, gc, gs, None, stats
+        gk, gcand, evalid = xchg.route_gather(ckeys, cand)
+        return (gk, [gcand] * n,
+                [torch.arange(R, dtype=torch.int32, device=dev)] * n, evalid,
+                torch.zeros((n, 3), dtype=torch.int32, device=dev))
+
     def _level_core(self, xchg, seen, scounts, frontier, fcounts, SC: int,
                     FC: int, VC: Optional[int], por: bool,
                     need_edges: bool) -> dict:
@@ -495,34 +534,18 @@ class MeshExplorer(TorchExplorer):
         the per-shard merges and invariant scans, and the partials of
         every shard (xchg.gather_partials).  Returns dict(part [D, NP]
         int32, shards [per-shard merge dicts], R, B, SB, edges)."""
-        n, K, PW = xchg.n, self.K, self.PW
+        n = xchg.n
         C = self.A * FC
-        dev = self.device
         R, B, SB = self._route_shape(C, FC)
-        z = torch.zeros((), dtype=torch.int64, device=dev)
-        ckeys = torch.empty((n, C, K), dtype=torch.int32, device=dev)
-        cand = torch.empty((n, C, PW), dtype=torch.int32, device=dev)
-        cvalid = torch.empty((n, C), dtype=torch.bool, device=dev)
-        rows = []
-        for m in range(n):
-            b = self._block(frontier[m], fcounts[m])
-            ckeys[m], cand[m], cvalid[m] = b["ckeys"], b["cand"], b["cvalid"]
-            del b["ckeys"], b["cand"], b["cvalid"]
-            rows.append(b)
+        z = torch.zeros((), dtype=torch.int64, device=self.device)
+        ckeys, cand, cvalid, rows = self._expand_shards(frontier, fcounts, n,
+                                                        C)
         por_c = [(z, z, z)] * n
         if por:
             ckeys, cand, cvalid, por_c = self._mesh_por(seen, scounts, ckeys,
                                                         cand, cvalid, FC)
-        if self.exchange == "a2a":
-            obs.note_buffer("mesh.a2a_buckets",
-                            2 * self.D * R * (K + PW + 1) * 4)
-            gk, gc, gs, stats = xchg.route_a2a(ckeys, cand, cvalid, B, SB)
-            evalid = None
-        else:
-            gk, gcand, evalid = xchg.route_gather(ckeys, cand)
-            gc = [gcand] * n
-            gs = [torch.arange(R, dtype=torch.int32, device=dev)] * n
-            stats = torch.zeros((n, 3), dtype=torch.int32, device=dev)
+        gk, gc, gs, evalid, stats = self._exchange(xchg, ckeys, cand, cvalid,
+                                                   R, B, SB)
         del ckeys, cvalid
         shards = []
         parts = []
@@ -913,6 +936,7 @@ class MeshExplorer(TorchExplorer):
 
         while lvl_frontier > 0:
             lvl_t0 = time.time()
+            self._run_caps = {"SC": SC, "FC": FC, "VC": VC}
             # chaos sites: crash / device failure between dispatches
             faults.kill_self("run_kill", level=depth, engine="mesh")
             faults.inject("device_run_fail", level=depth, engine="mesh")
@@ -1118,6 +1142,217 @@ class MeshExplorer(TorchExplorer):
         self.log(f"{generated} states generated, {distinct} distinct "
                  f"states found, 0 states left on queue.")
         return self._mk(True, distinct, generated, depth - 1, t0, warnings)
+
+    # ------------------------------------------------------------------
+    # the phase probe
+    # ------------------------------------------------------------------
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def probe_phase_walls(self, max_levels: int = 4
+                          ) -> Optional[Dict[str, float]]:
+        """Measured expand / exchange / merge wall breakdown
+        (jaxmc/backend/mesh.py:2259).
+
+        The level runs as one dispatch, so its phases are timed by a
+        probe: each phase as a separate call at the run's capacities
+        (the last run's SC, FC and VC, else the caller's mesh_caps),
+        driven a few levels from the real initial shards, with
+        torch.cuda.synchronize() before and after each call and one
+        untimed warm-up pass of every phase first (it builds nothing on
+        the card; it keeps first-touch allocation out of the walls):
+
+          expand          K1, K15, K8 (mesh_block), K2 per shard
+                          (_block)
+          exchange        K13 over the stacked blocks; on one device
+                          there is no collective: the a2a buckets are
+                          written straight into each owner's receive
+                          layout (_Local)
+          merge_rank      per shard: K8 (mesh_vc), the LSD sort, K3, K4,
+                          the CONSTRAINTs and K8 (mesh_front)
+          merge_fullsort  per shard: the LSD sort over seen + received
+                          keys and K11, then the same epilogue
+
+        Both merges run on the same inputs every level; the rank merge's
+        output carries the probe to the next level.  It stops when the
+        frontier empties, after max_levels, or when a level outgrows the
+        probe's capacities.  Then the whole one-level step (the body of
+        _mesh_level) is timed over the same levels, its first call
+        untimed, as the denominator of the hot share.  Counts are never
+        consumed.
+
+        Gauges: mesh.phase_levels, mesh.phase_expand_s,
+        mesh.phase_exchange_s, mesh.phase_merge_rank_s,
+        mesh.phase_merge_fullsort_s, mesh.phase_merge_s (the engine's
+        strategy), and with a timed step mesh.phase_step_s and
+        mesh.phase_hot_share; mesh.probe_shapes (D, FC, SC, C, R, VC, K,
+        PW: the capacities the phases ran at); one `mesh.phase_walls`
+        event per probed
+        level; profiler sites mesh.probe_expand, mesh.probe_route,
+        mesh.probe_merge_rank and mesh.probe_merge_fullsort."""
+        tel = obs.current()
+        init_rows, explored_init, n_init, err = \
+            self._prepare_init(time.time(), [])
+        if err is not None:
+            return None
+        D, K, PW = self.D, self.K, self.PW
+        caps = self._run_caps
+        hint = self._mesh_caps_hint
+        explored_mask = np.zeros(n_init, bool)
+        explored_mask[explored_init] = True
+        FC = _pow2_at_least(max(int(hint.get("FC", 1)),
+                                int(caps.get("FC") or 1),
+                                int(explored_mask.sum()), 1), lo=64)
+        SC = _pow2_at_least(max(4 * FC, int(hint.get("SC", 1)),
+                                int(caps.get("SC") or 1)), lo=256)
+        seen_np, frontier_np, fcount_np, scount_np = self._init_shards(
+            init_rows, np.nonzero(explored_mask)[0], D, SC, FC)
+        C = self.A * FC
+        R, B, SB = self._route_shape(C, FC)
+        VCp = self._initial_vc(FC)
+        if VCp is not None and caps.get("VC"):
+            VCp = max(VCp, int(caps["VC"]))
+        # the shapes every phase runs at, for byte bounds
+        tel.gauge("mesh.probe_shapes", {"D": D, "FC": FC, "SC": SC, "C": C,
+                                        "R": R, "VC": VCp, "K": K,
+                                        "PW": PW,
+                                        "exchange": self.exchange})
+
+        # the level's own expansion and exchange (_level_core's helpers)
+        def expand(frontier, fcounts):
+            return self._expand_shards(frontier, fcounts, D, C)[:3]
+
+        def route(ckeys, cand, cvalid):
+            return self._exchange(self._local, ckeys, cand, cvalid, R, B,
+                                  SB)[:3]
+
+        def mk_merge(strategy):
+            def merge(seen, scounts, gk, gc, gs):
+                return [self._merge(seen[d], scounts[d], gk[d], gc[d],
+                                    gs[d], SC, R, VCp, merge=strategy)
+                        for d in range(D)]
+            return merge
+
+        jexp = obs.prof_wrap("mesh.probe_expand", expand)
+        jrt = obs.prof_wrap("mesh.probe_route", route)
+        jmg = {m: obs.prof_wrap(f"mesh.probe_merge_{m}", mk_merge(m))
+               for m in ("rank", "fullsort")}
+
+        def timed(f, *a):
+            self._sync()
+            t0 = time.perf_counter()
+            out = f(*a)
+            self._sync()
+            return out, time.perf_counter() - t0
+
+        seen = self._shards_on_device(seen_np)
+        frontier = self._shards_on_device(frontier_np)
+        scounts = [int(x) for x in scount_np]
+        fcounts = [int(x) for x in fcount_np]
+        # the untimed warm-up pass of every phase
+        o2 = jrt(*jexp(frontier, fcounts))
+        for m in jmg.values():
+            m(seen, scounts, *o2)
+        del o2
+        self._sync()
+
+        walls = {"expand": 0.0, "exchange": 0.0,
+                 "merge_rank": 0.0, "merge_fullsort": 0.0}
+        lv = 0
+        while lv < max_levels and sum(fcounts) > 0:
+            o1, w_e = timed(jexp, frontier, fcounts)
+            o2, w_x = timed(jrt, *o1)
+            del o1
+            outs, w_m = {}, {}
+            for m in ("fullsort", "rank"):
+                outs[m], w_m[m] = timed(jmg[m], seen, scounts, *o2)
+            del o2
+            walls["expand"] += w_e
+            walls["exchange"] += w_x
+            walls["merge_rank"] += w_m["rank"]
+            walls["merge_fullsort"] += w_m["fullsort"]
+            tel.event("mesh.phase_walls", level=lv,
+                      expand_s=round(w_e, 6), exchange_s=round(w_x, 6),
+                      merge_rank_s=round(w_m["rank"], 6),
+                      merge_fullsort_s=round(w_m["fullsort"], 6))
+            rk = outs["rank"]
+            scounts2 = [int(mg["seen_count2"]) for mg in rk]
+            fcounts2 = [int(mg["front_count"]) for mg in rk]
+            vneed = [int(mg["v_need"]) for mg in rk]
+            if max(scounts2) > SC or max(fcounts2) > FC or \
+                    (VCp is not None and max(vneed) > VCp):
+                break  # the probe's capacities are outgrown
+            seen = [mg["seen2"] for mg in rk]
+            frontier = [mg["front_rows"][:FC] for mg in rk]
+            scounts, fcounts = scounts2, fcounts2
+            lv += 1
+        del outs
+
+        # the denominator: the whole one-level step at the same
+        # capacities over its own state, from the same initial shards
+        step_wall = 0.0
+        step_levels = 0
+        VCe = VCp if self.merge == "rank" else None
+        s_seen = self._shards_on_device(seen_np)
+        s_front = self._shards_on_device(frontier_np)
+        s_sc = [int(x) for x in scount_np]
+        s_fc = [int(x) for x in fcount_np]
+        flags = (_S_FOVF, _S_SOVF, _S_TOVF, _S_AOVF, _S_VOVF)
+        warm = True
+        por = isinstance(self._por_memo, dict)
+
+        def step(seen, scounts, frontier, fcounts):
+            # _mesh_level's body, outside its profiler site
+            core = self._level_core(self._local, seen, scounts, frontier,
+                                    fcounts, SC, FC, VCe, por=por,
+                                    need_edges=False)
+            return (self._scalars(core["part"], FC, SC, 0),
+                    core["shards"])
+
+        while step_levels < max_levels and sum(s_fc) > 0:
+            (vec, shards), w_s = timed(step, s_seen, s_sc, s_front, s_fc)
+            scal, _aux, part = split_vector(vec.cpu().tolist(), D)
+            if any(scal[f] for f in flags) or (not warm and scal[_S_OVC]):
+                break  # the step outgrew the probe's capacities
+            s_seen = [mg["seen2"] for mg in shards]
+            s_front = [mg["front_rows"][:FC] for mg in shards]
+            s_sc = [int(x) for x in part[:, _P["seen"]]]
+            s_fc = [int(x) for x in part[:, _P["front"]]]
+            if warm:
+                # the first call stands for the reference's compile
+                # call: timed again from the level it produced
+                warm = False
+                continue
+            step_wall += w_s
+            step_levels += 1
+
+        out = {"levels": lv,
+               "expand_s": round(walls["expand"], 6),
+               "exchange_s": round(walls["exchange"], 6),
+               "merge_rank_s": round(walls["merge_rank"], 6),
+               "merge_fullsort_s": round(walls["merge_fullsort"], 6)}
+        out["merge_s"] = out["merge_rank_s"] if self.merge == "rank" \
+            else out["merge_fullsort_s"]
+        if step_levels:
+            out["step_levels"] = step_levels
+            out["step_s"] = round(step_wall, 6)
+            # per level on both sides: the loops can stop at different
+            # levels
+            hot = (out["expand_s"] + out["merge_s"]) / max(lv, 1)
+            out["hot_share"] = round(
+                hot / max(step_wall / step_levels, 1e-9), 4)
+        tel.gauge("mesh.phase_levels", lv)
+        tel.gauge("mesh.phase_expand_s", out["expand_s"])
+        tel.gauge("mesh.phase_exchange_s", out["exchange_s"])
+        tel.gauge("mesh.phase_merge_s", out["merge_s"])
+        tel.gauge("mesh.phase_merge_rank_s", out["merge_rank_s"])
+        tel.gauge("mesh.phase_merge_fullsort_s", out["merge_fullsort_s"])
+        if step_levels:
+            tel.gauge("mesh.phase_step_s", out["step_s"])
+            tel.gauge("mesh.phase_hot_share", out["hot_share"])
+        return out
 
     # ------------------------------------------------------------------
     # the host loop (refinement/temporal PROPERTYs; JAXMC_MESH_RESIDENT=0)

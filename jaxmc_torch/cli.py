@@ -1,4 +1,5 @@
-"""Command line of the port: `python -m jaxmc_torch check SPEC`.
+"""Command line of the port: `python -m jaxmc_torch check|simulate|info|
+sweep`.
 
     python -m jaxmc_torch check SPEC [--cfg F] [-I DIR ...]
         [--device cuda|cpu] [--seen auto|exact|fingerprint]
@@ -10,12 +11,20 @@
         [--resume F] [--backend interp [--workers N]]
         [--backend auto|cpu|gpu|tpu] [--no-device-fallback]
         [--metrics-out F] [--trace F] [--profile [wall|xla]]
+        [--analyze off|warn|strict]
+    python -m jaxmc_torch simulate SPEC [--cfg F] [--walks N] [--depth N]
+        [--seed N] [--coverage] [--no-deadlock]
+    python -m jaxmc_torch info SPEC [--cfg F]
+    python -m jaxmc_torch sweep [--backend interp|jax] [--device cuda|cpu]
+        [--slow] [--metrics-out F]
 
-Prints the same TLC-style progress and final lines as `jaxmc check
---backend jax`.  The search runs on the CUDA card unless --device cpu
-is given.  --host-seen runs the chunked engine whose seen set is the
-native host fingerprint store, the mode that also runs hybrid specs
-(units the compiler rejects demote to the interpreter).  --resident
+`check` runs through the session stages (session.py CheckSession:
+parse, analyze, compile, explore) and prints the same TLC-style
+progress and final lines as `jaxmc check --backend jax`.  The search
+runs on the CUDA card unless --device cpu is given.  --host-seen runs
+the chunked engine whose seen set is the native host fingerprint store,
+the mode that also runs hybrid specs (units the compiler rejects demote
+to the interpreter).  --resident
 keeps the whole level loop on the device and reads one summary per
 level (no traces).  --seen-cap caps the device seen table of the level
 and resident engines: past it the table spills to host-RAM and disk
@@ -43,7 +52,12 @@ none; a --backend that contradicts --device exits 2); --backend auto
 runs the preflight oracle (backend/oracle.py) and prints its verdict,
 the one route on which the port chooses the CPU by itself.
 --metrics-out, --trace and --profile write the reference's telemetry
-artifacts (obs/).
+artifacts (obs/).  --analyze warn|strict lints the spec/cfg pair first
+(analyze/lint.py; strict exits 2 on an error diagnostic).  `simulate`
+checks invariants along random behaviors, `info` prints the module
+summary and, with a cfg, the batch class, proven bounds and the arm
+independence matrix, and `sweep` checks the corpus manifest
+(corpus.py): all as the reference's subcommands print them.
 
 Exit codes: 0 no error found, 1 a violation, 2 a refused mode, an
 uncompilable spec, a damaged or foreign checkpoint, a device failure or
@@ -59,28 +73,6 @@ import signal
 import sys
 import time
 from typing import List, Optional
-
-
-def interp_engine(model, cfg, log):
-    """The interpreter engine --backend interp runs, chosen as the
-    reference's CheckSession.compile chooses (jaxmc/session.py:518-548):
-    --por runs the serial Explorer, --workers N > 1 (None or 0: the
-    default count) the ParallelExplorer, else the serial Explorer."""
-    from .engine.explore import Explorer
-    from .engine.parallel import ParallelExplorer, default_workers
-    workers = default_workers() if not cfg.workers \
-        else max(1, cfg.workers)
-    kw = dict(log=log, max_states=cfg.max_states,
-              progress_every=cfg.progress_every,
-              checkpoint_path=cfg.checkpoint,
-              checkpoint_every=cfg.checkpoint_every,
-              resume_from=cfg.resume,
-              final_checkpoint=cfg.final_checkpoint)
-    if cfg.por:
-        return Explorer(model, por=True, **kw)
-    if workers > 1:
-        return ParallelExplorer(model, workers=workers, **kw)
-    return Explorer(model, **kw)
 
 
 def cmd_check(args) -> int:
@@ -200,11 +192,19 @@ def _result_block(res) -> dict:
 
 def _check(args, tel, log, t0) -> int:
     from . import drain, faults
-    from .backend.bfs import TorchExplorer
-    from .compile.vspec import Bounds, CompileError, ModeError
+    from .compile.vspec import CompileError, ModeError
     from .engine.explore import format_trace
-    from .session import CheckSession, SessionConfig
+    from .session import AnalyzeError, CheckSession, SessionConfig
 
+    if args.analyze not in ("off", "warn", "strict"):
+        # argparse checks only typed values against its choices: a bad
+        # JAXMC_ANALYZE default must fail loudly, not degrade a strict
+        # gate to warn
+        print(f"error: invalid --analyze/JAXMC_ANALYZE value "
+              f"{args.analyze!r} (expected off, warn or strict)",
+              file=sys.stderr)
+        _metrics_error(args, tel, f"invalid analyze mode {args.analyze!r}")
+        return 2
     interp = args.backend == "interp"
     try:
         if args.host_seen and args.resident:
@@ -212,8 +212,21 @@ def _check(args, tel, log, t0) -> int:
                             "exclusive: resident keeps the seen-set on "
                             "device, host_seen keeps it in the native "
                             "host store")
-        cfg = SessionConfig.from_args(args)
-        sess = CheckSession(cfg, tel=tel, log=log)
+        sess = CheckSession(SessionConfig.from_args(args), tel=tel, log=log)
+        if args.analyze != "off":
+            # before parse, so a cfg defect that bind_model would refuse
+            # still reports its whole diagnostic list
+            try:
+                for d in sess.analyze():
+                    print(f"analyze: {d.render()}", file=sys.stderr)
+            except AnalyzeError as ex:
+                for d in ex.diagnostics:
+                    print(f"analyze: {d.render()}", file=sys.stderr)
+                print(f"error: --analyze=strict refused the run ({ex}); "
+                      f"fix the spec/cfg or re-run with --analyze=warn",
+                      file=sys.stderr)
+                _metrics_error(args, tel, f"analyze strict: {ex}")
+                return 2
         if sess.parse() == "assumes":
             rc = sess.run_assumes()
             if args.metrics_out:
@@ -223,38 +236,16 @@ def _check(args, tel, log, t0) -> int:
                                           "truncated": False,
                                           "mode": "assumes"})
             return rc
+        sess.compile()
         if interp:
-            eng = interp_engine(sess.model, cfg, log)
-            with tel.span("search", workers=getattr(eng, "workers", 1)):
-                res = eng.run()
+            res = sess.explore()
         else:
-            device = sess.device_init()
-            with tel.span("engine_build"):
-                eng = TorchExplorer(sess.model, log=log,
-                                    max_states=args.max_states,
-                                    store_trace=not args.no_trace,
-                                    progress_every=args.progress_every,
-                                    bounds=Bounds(seq_cap=args.seq_cap,
-                                                  grow_cap=args.grow_cap,
-                                                  kv_cap=args.kv_cap),
-                                    sample_cfg=tuple(args.sample),
-                                    seen_mode=args.seen, device=device,
-                                    por=args.por, host_seen=args.host_seen,
-                                    resident=args.resident,
-                                    chunk=args.chunk,
-                                    seen_cap=args.seen_cap,
-                                    spill_dir=args.seen_spill,
-                                    checkpoint_path=args.checkpoint,
-                                    checkpoint_every=args.checkpoint_every,
-                                    resume_from=args.resume)
             try:
-                with tel.span("search"):
-                    res = eng.run()
+                res = sess.explore()
             except (faults.FaultInjected, RuntimeError, OSError,
                     MemoryError, ConnectionError) as e:
                 # a terminal device failure: no demotion to the CPU
-                # engine (ROADMAP A.14), so the run ends here with one
-                # named line
+                # engine, so the run ends here with one named line
                 print(f"error: terminal device failure "
                       f"({type(e).__name__}: {e}); the torch engine does "
                       f"not fall back to the CPU", file=sys.stderr)
@@ -272,7 +263,7 @@ def _check(args, tel, log, t0) -> int:
         _metrics_error(args, tel, str(e))
         return 2
     wall = time.time() - t0
-    backend = "interp" if interp else f"torch:{eng.device}"
+    backend = "interp" if interp else f"torch:{sess.engine.device}"
     print(f"{res.generated} states generated, {res.distinct} distinct states "
           f"found ({res.generated / max(res.wall_s, 1e-9):.0f} states/sec, "
           f"backend={backend}, wall {wall:.2f}s)")
@@ -305,6 +296,116 @@ def _check(args, tel, log, t0) -> int:
     return 1
 
 
+def cmd_simulate(args) -> int:
+    """TLC's -simulate mode: random behaviors, invariants checked along
+    the way (engine/simulate.py)."""
+    from .engine.explore import format_trace
+    from .engine.simulate import random_walks
+    from .session import load_model
+
+    model = load_model(args.spec, args.cfg, no_deadlock=args.no_deadlock,
+                       includes=args.include)
+    v = random_walks(model, n_walks=args.walks, depth=args.depth,
+                     seed=args.seed, check_invariants=True,
+                     coverage_guided=args.coverage,
+                     check_deadlock=model.check_deadlock)
+    if v is None:
+        print(f"{args.walks} behaviors of length <= {args.depth} simulated. "
+              f"No error has been found.")
+        return 0
+    print(format_trace(v))
+    return 1
+
+
+def cmd_sweep(args) -> int:
+    from .corpus import sweep
+    return 1 if sweep(backend=args.backend, include_slow=args.slow,
+                      metrics_out=args.metrics_out,
+                      device=args.device) else 0
+
+
+def cmd_info(args) -> int:
+    """The module summary, and with a bindable cfg the batch line, the
+    proven bounds, the arm independence matrix and its key classes."""
+    from .front import tla_ast as A
+    from .sem.modules import Loader
+
+    ldr = Loader([os.path.dirname(os.path.abspath(args.spec))])
+    mod = ldr.load_path(args.spec)
+    print(f"module {mod.name}")
+    print(f"  extends:   {', '.join(mod.ast.extends) or '-'}")
+    print(f"  constants: {', '.join(n for n, _ in mod.constants) or '-'}")
+    print(f"  variables: {', '.join(mod.variables) or '-'}")
+    ops = [u.name for u in mod.ast.units if isinstance(u, A.OpDef)]
+    print(f"  operators: {len(ops)}")
+    cfgp = getattr(args, "cfg", None) or \
+        os.path.splitext(args.spec)[0] + ".cfg"
+    if not os.path.exists(cfgp):
+        return 0
+    # one model load and one bounds fixpoint serve the batch line and
+    # the analysis below
+    model = rep = None
+    try:
+        from .analyze.bounds import infer_state_bounds
+        from .session import load_model
+        model = load_model(args.spec, cfgp, False)
+        rep = infer_state_bounds(model)
+        model._bounds_report = rep
+    except Exception:  # noqa: BLE001 — info never fails on an
+        model = None   # analysis defect
+    try:
+        from .session import SessionConfig, batch_profile
+        prof = batch_profile(SessionConfig(spec=args.spec, cfg=cfgp,
+                                           backend="jax", host_seen=True),
+                             model=model)
+    except Exception:  # noqa: BLE001
+        prof = None
+    if prof is not None:
+        est = prof.cost_estimate if prof.cost_estimate is not None else "?"
+        print(f"  batch:     sig={prof.bsig} "
+              f"lifted=[{', '.join(prof.lift) or '-'}] "
+              f"est_states={est}")
+    if model is None:
+        print("  analyze:   unavailable (model does not bind)")
+        return 0
+    try:
+        from .analyze.bounds import state_space_estimate
+        from .analyze.independence import independence_report, por_refusal
+        if rep is None:
+            print("  bounds:    analysis bailed (no proofs)")
+        else:
+            ebs = rep.element_bounds()
+            lanes = rep.lane_bounds()
+            parts = []
+            for v in model.vars:
+                if v in lanes:
+                    parts.append(f"{v}∈[{lanes[v][0]},{lanes[v][1]}]")
+                elif v in ebs:
+                    parts.append(f"{v}:{ebs[v]!r}")
+            est = state_space_estimate(model, rep)
+            print(f"  bounds:    "
+                  f"{'converged' if rep.converged else 'TRUNCATED'}"
+                  f" proven=[{', '.join(parts) or '-'}] "
+                  f"predicted_states={est if est is not None else '?'}")
+        irep = independence_report(model)
+        refusal = por_refusal(model)
+        print(f"  independence: {len(irep.labels)} arms, "
+              f"{irep.commuting_pairs()} commuting pairs, "
+              f"{len(irep.por_safe)} por-safe"
+              + (f" (--por disabled: {refusal})" if refusal else ""))
+        for row in irep.matrix_rows():
+            print(f"    {row}")
+        # why each arm is, or is not, element-commuting
+        print("  key classes:")
+        for row in irep.keyclass_rows():
+            print(f"    {row}")
+    except Exception as ex:  # noqa: BLE001 — info never fails
+        if os.environ.get("JAXMC_DEBUG"):
+            raise
+        print(f"  analyze:   unavailable ({type(ex).__name__})")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     from .backend import BACKEND_CHOICES
     from .compile.vspec import Bounds
@@ -324,6 +425,16 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--no-trace", action="store_true")
     c.add_argument("--no-deadlock", action="store_true",
                    help="disable deadlock checking")
+    c.add_argument("--analyze", choices=["off", "warn", "strict"],
+                   default=os.environ.get("JAXMC_ANALYZE", "off"),
+                   help="lint the spec/cfg pair before the build (stable "
+                        "JMC codes: undefined or unused names, dead "
+                        "actions, cfg mismatches, symmetry hazards): "
+                        "warn prints the diagnostics on stderr and goes "
+                        "on, strict exits 2 on any error diagnostic "
+                        "(env: JAXMC_ANALYZE).  Demotion prediction and "
+                        "bounds inference do not depend on it "
+                        "(JAXMC_ANALYZE_PREDICT, JAXMC_ANALYZE_BOUNDS)")
     c.add_argument("--por", action="store_true",
                    help="device partial-order reduction (persistent-set "
                         "filter in the level step)")
@@ -408,7 +519,47 @@ def build_parser() -> argparse.ArgumentParser:
                         "never falls back to the CPU, so this is always "
                         "so)")
     c.set_defaults(fn=cmd_check)
+
+    m = sub.add_parser("simulate",
+                       help="check invariants along random behaviors "
+                            "(TLC -simulate)")
+    m.add_argument("spec")
+    m.add_argument("--cfg", default=None)
+    m.add_argument("-I", "--include", action="append", default=[])
+    m.add_argument("--walks", type=int, default=100)
+    m.add_argument("--depth", type=int, default=100)
+    m.add_argument("--seed", type=int, default=0)
+    m.add_argument("--coverage", action="store_true",
+                   help="bias toward rarely-taken action families")
+    m.add_argument("--no-deadlock", action="store_true",
+                   help="disable deadlock reporting")
+    m.set_defaults(fn=cmd_simulate)
+
+    i = sub.add_parser("info", help="parse a spec and print a summary")
+    i.add_argument("spec")
+    i.add_argument("--cfg", default=None,
+                   help="model config for the batch and analysis lines "
+                        "(default: <spec>.cfg when present)")
+    i.set_defaults(fn=cmd_info)
+
+    s = sub.add_parser("sweep",
+                       help="check the whole corpus with its expected "
+                            "verdicts (the reference's `tlc *tla`)")
+    s.add_argument("--backend", choices=("interp", "jax"),
+                   default="interp",
+                   help="interp: the interpreter; jax: the port's "
+                        "device engine on --device")
+    s.add_argument("--device", default=None, choices=("cuda", "cpu"),
+                   help="where --backend jax runs (default: "
+                        "JAXMC_SWEEP_PLATFORM, else the CUDA card)")
+    s.add_argument("--slow", action="store_true",
+                   help="include the multi-minute models")
+    s.add_argument("--metrics-out", default=None, metavar="FILE",
+                   help="write a per-case JSON artifact (status, wall "
+                        "time, expansion mode)")
+    s.set_defaults(fn=cmd_sweep)
     return p
+
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -34,7 +34,7 @@ still running at rollup — the deadline-blowout record); each levels[i]
 carries at least {level} with non-decreasing level indices.
 
 Where the torch port's artifact differs (jaxmc_torch, the same schema
-and validators; see PORT_ABSENT_SPANS / PORT_ABSENT_SITES below):
+and validators; see PORT_ABSENT_SITES below):
   - `env` (meta block and proc_meta events): the reference's keys with
     `jax_version` always null, `platform` "gpu" or "cpu" as the run's
     torch device, plus `torch_version` and, where nvidia-smi exists,
@@ -576,11 +576,8 @@ RESULT_KEYS = ("ok", "distinct", "generated", "diameter", "truncated")
 
 PHASE_KEYS = ("name", "wall_s", "count")
 
-# reference spans and dispatch sites with no counterpart in the torch
-# port, with the reason (the docstring's port notes)
-PORT_ABSENT_SPANS = {
-    "analyze_arms": "no static demotion prediction (analyze/verdicts.py) "
-                    "in the port; rejected arms demote at build time"}
+# reference dispatch sites with no counterpart in the torch port, with
+# the reason (the docstring's port notes); every reference span has one
 PORT_ABSENT_SITES = {
     "bfs.hstep_group": "no split step in the port",
     "bfs.hstep_combine": "no split step in the port",

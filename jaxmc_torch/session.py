@@ -1,16 +1,27 @@
-"""Model loading, the run configuration and the ASSUME-only mode of the
-port's entry points (the port of jaxmc/session.py: load_model,
-SessionConfig with its signature fields, batch_profile, and the parse,
-run_assumes and device-init parts of CheckSession).
+"""CheckSession: the check flow as explicit, resumable stages (the port
+of jaxmc/session.py).
 
-`CheckSession` holds what the `check` command needs before an engine
-exists: `parse` (a bound model, or TLC's No-Behavior-Spec mode when the
-cfg names neither SPECIFICATION nor INIT), `run_assumes`, and
-`device_init` (the --backend selection: a pinned platform, or the
-preflight oracle's verdict under auto, resolved to a torch device).
-The engine stages stay in cli.py.  Every stage reports spans into the
-recorder the session was built with (obs.current() unless one is
-passed).
+    parse    cfg + spec  ->  a bound Model (or TLC's No-Behavior-Spec
+                             mode: a cfg with neither SPECIFICATION nor
+                             INIT, driven by run_assumes)
+    analyze  the pair    ->  lint diagnostics, gated by cfg.analyze
+                             off/warn/strict: strict raises AnalyzeError
+                             on error diagnostics before any build
+    compile  Model       ->  a ready engine: the interpreter engines for
+                             --backend interp, else device_init (the
+                             --backend and --device selection) and
+                             TorchExplorer, with its layout signature
+    explore  engine      ->  CheckResult (re-runnable: a later run may
+                             override resume_from, checkpoint_path and
+                             final_checkpoint)
+
+The `check` command is a thin layer over these stages; the serve
+daemon, when ported, holds sessions warm through the same object.  Every
+stage reports spans into the recorder the session was built with
+(obs.current() unless one is passed).  Stage errors propagate as the
+exceptions the CLI maps to its exit codes.  There is no device-to-CPU
+demotion: a terminal device failure ends the run (the reference's
+demote_to_cpu is not ported).
 """
 
 from __future__ import annotations
@@ -21,6 +32,8 @@ from typing import Any, Dict, Optional, Tuple
 
 from . import obs
 from .compile.vspec import Bounds, ModeError
+
+_SENTINEL = object()  # "keep the configured value" for explore overrides
 
 
 def read_text(path: str) -> str:
@@ -55,6 +68,20 @@ def load_model(spec_path: str, cfg_path=None, no_deadlock: bool = False,
     return bind_model(mod, cfg)
 
 
+class AnalyzeError(Exception):
+    """--analyze=strict found error-severity diagnostics: the run must
+    not proceed to compile and search.  Carries the whole diagnostic
+    list, so a caller can render every finding."""
+
+    def __init__(self, diagnostics):
+        self.diagnostics = list(diagnostics)
+        errs = [d for d in self.diagnostics if d.severity == "error"]
+        super().__init__(
+            f"{len(errs)} error diagnostic"
+            f"{'s' if len(errs) != 1 else ''} "
+            f"({'; '.join(d.code for d in errs[:6])})")
+
+
 @dataclass
 class SessionConfig:
     """What a check run is parameterized by: the fields of the
@@ -82,9 +109,13 @@ class SessionConfig:
     resident: bool = False
     seen: str = "auto"
     seen_cap: Optional[int] = None
+    seen_spill: Optional[str] = None
     checkpoint: Optional[str] = None
     checkpoint_every: float = 600.0
     resume: Optional[str] = None
+    # the lint gate of the analyze stage: "off" (skip), "warn" (record
+    # and continue) or "strict" (error diagnostics refuse the run)
+    analyze: str = "off"
     por: bool = False
     # checkpoint COMPLETED runs too (a resume replays the verdict)
     final_checkpoint: bool = False
@@ -206,22 +237,36 @@ def batch_profile(cfg: SessionConfig,
 
 
 class CheckSession:
-    """The parse stage of a check, TLC's No-Behavior-Spec mode and the
-    device selection."""
+    """One check as stages over one model/engine pair.
+
+    Stage order is enforced (compile needs parse's model, explore needs
+    compile's engine) and each stage is idempotent, so a caller can go
+    straight to any stage.  `explore` alone is re-runnable with per-run
+    overrides: a warm session re-drives its engine with
+    `resume_from=<a completed run's final checkpoint>` and the search
+    replays the stored verdict without building anything again."""
 
     def __init__(self, cfg: SessionConfig, tel=None, log=None):
         self.cfg = cfg
         self.tel = tel if tel is not None else obs.current()
         self.log = log if log is not None else obs.Logger(quiet=True)
+        self.stage: Optional[str] = None  # the last completed stage
         self.kind: Optional[str] = None   # "model" | "assumes"
         self.model = None
         self.cfg_path: Optional[str] = None
+        self.engine = None
+        self.workers: Optional[int] = None
+        self.layout_sig: Optional[str] = None
+        self.result = None
+        self.explore_count = 0
+        self.diagnostics = None  # the analyze stage's lint findings
 
+    # ---- stage: parse ----
     def parse(self) -> str:
         """Load cfg+spec.  Returns "model" (a bound Model in
         self.model) or "assumes" (a cfg with neither SPECIFICATION nor
         INIT: drive it with run_assumes())."""
-        if self.kind is not None:
+        if self.stage is not None:
             return self.kind
         cfg = self.cfg
         cfgp = cfg.cfg or default_cfg_path(cfg.spec)
@@ -231,6 +276,7 @@ class CheckSession:
             c = parse_cfg(read_text(cfgp))
             if not c.specification and not c.init:
                 self.kind = "assumes"
+                self.stage = "parse"
                 return self.kind
         with self.tel.span("load", spec=cfg.spec):
             self.model = load_model(cfg.spec, cfg.cfg, cfg.no_deadlock,
@@ -239,6 +285,7 @@ class CheckSession:
         # bound every progress line carries a fraction-explored and ETA
         obs.attach_estimator(self.tel, self.model)
         self.kind = "model"
+        self.stage = "parse"
         return self.kind
 
     def run_assumes(self) -> int:
@@ -276,6 +323,154 @@ class CheckSession:
               f"{'s' if len(mod.assumes) != 1 else ''} checked. "
               "No error has been found.")
         return 0
+
+    # ---- stage: analyze ----
+    def analyze(self):
+        """Lint the spec/cfg pair and keep the diagnostics.  cfg.analyze
+        "off" skips the stage, "warn" records, "strict" raises
+        AnalyzeError when any error-severity diagnostic exists, and
+        keeps raising it on every later call (compile re-enters here,
+        so a caller cannot build past a refusal).  Runnable before
+        parse: the linter loads the pair itself, so a cfg that
+        bind_model refuses still gets its diagnostics.  An assumes-mode
+        pair has nothing to analyze."""
+        mode = (self.cfg.analyze or "off").lower()
+        if self.diagnostics is not None:
+            if mode == "strict":
+                if any(d.severity == "error" for d in self.diagnostics):
+                    raise AnalyzeError(self.diagnostics)
+            return self.diagnostics
+        if mode == "off":
+            return []
+        cfgp = self.cfg.cfg or default_cfg_path(self.cfg.spec)
+        if cfgp:
+            try:
+                from .front.cfg import parse_cfg
+                c = parse_cfg(read_text(cfgp))
+                if not c.specification and not c.init:
+                    return []  # assumes-mode: no model to lint
+            except Exception:  # noqa: BLE001 — lint_pair reports it
+                pass           # as JMC100
+        from .analyze.lint import errors, lint_pair, max_severity
+        with self.tel.span("analyze", mode=mode):
+            diags = lint_pair(self.cfg.spec, cfgp, tuple(self.cfg.include))
+        self.diagnostics = diags
+        if diags:
+            self.tel.counter("analyze.lint_diags", len(diags))
+            self.tel.gauge("analyze.lint_max_severity", max_severity(diags))
+            self.tel.gauge("analyze.lint_codes",
+                           sorted({d.code for d in diags}))
+        if self.stage == "parse":
+            self.stage = "analyze"
+        if mode == "strict" and errors(diags):
+            raise AnalyzeError(diags)
+        return diags
+
+    # ---- stage: compile ----
+    def compile(self) -> "CheckSession":
+        """Build the engine.  --backend interp: the serial Explorer
+        (--por, or one worker) or the ParallelExplorer (--workers N > 1;
+        None or 0: the default count).  Otherwise device_init, then
+        TorchExplorer on that device, and the layout signature.  Raises
+        what engine construction raises (ModeError, CompileError,
+        CkptError, a missing card); the caller owns the policy."""
+        if self.stage in ("compile", "explore"):
+            return self
+        if self.stage is None:
+            self.parse()
+        if self.stage == "parse":
+            self.analyze()  # a no-op when cfg.analyze == "off"
+        assert self.kind == "model", "assumes sessions have no engine"
+        cfg = self.cfg
+        if cfg.backend == "interp":
+            from .engine.explore import Explorer
+            from .engine.parallel import ParallelExplorer, default_workers
+            self.workers = default_workers() if not cfg.workers \
+                else max(1, cfg.workers)
+            kw = dict(log=self.log, max_states=cfg.max_states,
+                      progress_every=cfg.progress_every,
+                      checkpoint_path=cfg.checkpoint,
+                      checkpoint_every=cfg.checkpoint_every,
+                      resume_from=cfg.resume,
+                      final_checkpoint=cfg.final_checkpoint)
+            if cfg.por:
+                # the ample choice reads the live seen set state by
+                # state, which the fork pool's chunks cannot replay
+                if self.workers > 1:
+                    self.tel.gauge("parallel.fallback_reason", "por")
+                self.workers = 1
+                self.engine = Explorer(self.model, por=True, **kw)
+            elif self.workers > 1:
+                self.engine = ParallelExplorer(self.model,
+                                               workers=self.workers, **kw)
+            else:
+                self.engine = Explorer(self.model, **kw)
+        else:
+            from .backend.bfs import TorchExplorer
+            device = self.device_init()
+            with self.tel.span("engine_build"):
+                self.engine = TorchExplorer(
+                    self.model, log=self.log, max_states=cfg.max_states,
+                    store_trace=not cfg.no_trace,
+                    progress_every=cfg.progress_every,
+                    bounds=Bounds(seq_cap=cfg.seq_cap,
+                                  grow_cap=cfg.grow_cap,
+                                  kv_cap=cfg.kv_cap),
+                    sample_cfg=tuple(cfg.sample), seen_mode=cfg.seen,
+                    device=device, por=cfg.por,
+                    host_seen=cfg.host_seen, resident=cfg.resident,
+                    chunk=cfg.chunk, seen_cap=cfg.seen_cap,
+                    spill_dir=cfg.seen_spill,
+                    checkpoint_path=cfg.checkpoint,
+                    checkpoint_every=cfg.checkpoint_every,
+                    resume_from=cfg.resume,
+                    final_checkpoint=cfg.final_checkpoint)
+            self.layout_sig = self.engine._layout_sig()
+        self.stage = "compile"
+        return self
+
+    # ---- stage: explore ----
+    def explore(self, resume_from=_SENTINEL, checkpoint_path=_SENTINEL,
+                final_checkpoint=_SENTINEL):
+        """Run (or run again) the search.  The overrides are set on the
+        engine, whose run() reads them afresh each call: a warm session
+        answers a repeat submission with
+        explore(resume_from=<its final checkpoint>).  Returns (and
+        keeps) the CheckResult."""
+        if self.stage in (None, "parse", "analyze"):
+            self.compile()
+        ex = self.engine
+        if resume_from is not _SENTINEL:
+            ex.resume_from = resume_from
+        if checkpoint_path is not _SENTINEL:
+            ex.checkpoint_path = checkpoint_path
+        if final_checkpoint is not _SENTINEL:
+            ex.final_checkpoint = final_checkpoint
+        self.explore_count += 1
+        span = dict(workers=self.workers) \
+            if self.cfg.backend == "interp" else {}
+        with self.tel.span("search", **span):
+            self.result = ex.run()
+        self.stage = "explore"
+        return self.result
+
+    # ---- introspection ----
+    def describe(self) -> Dict[str, Any]:
+        """The session's resumable identity (the serve status
+        endpoint's)."""
+        return {
+            "stage": self.stage,
+            "kind": self.kind,
+            "backend": self.cfg.backend,
+            "spec": self.cfg.spec,
+            "module": self.model.module.name if self.model is not None
+            else None,
+            "layout_sig": self.layout_sig,
+            "checkpoint": self.cfg.checkpoint,
+            "explore_count": self.explore_count,
+            "analyze_diags": len(self.diagnostics)
+            if self.diagnostics is not None else None,
+        }
 
     # ---- device selection (the reference's resolve_platform and
     # device_init, jaxmc/session.py:420-495) ----

@@ -137,3 +137,66 @@ def test_quiet_drops_only_the_progress_lines(tmp_path, capsys,
     assert not any(ln.startswith("Progress(") for ln in quiet)
     assert quiet[-1] == loud[-1] == \
         "Model checking completed. No error has been found."
+
+
+# the subcommands beyond `check`, and `check --analyze`: stdout, stderr
+# and the exit code equal the reference CLI's
+SUBCOMMANDS = {
+    "info_transfer": ["info", os.path.join(SPECS, "transfer_scaled.tla")],
+    "info_portoy_cfg": ["info", os.path.join(SPECS, "portoy.tla"), "--cfg",
+                        os.path.join(SPECS, "portoy_ok.cfg")],
+    "info_msgstoy": ["info", os.path.join(SPECS, "msgstoy.tla")],
+    "info_unbound": ["info", os.path.join(SPECS, "linttoy.tla")],
+    "info_no_cfg": ["info", "okm.tla"],
+    "simulate_assert": ["simulate", os.path.join(SPECS,
+                                                 "pcal_intro_buggy.tla"),
+                        "--seed", "0"],
+    "simulate_clean": ["simulate", os.path.join(SPECS, "constoy.tla"),
+                       "--seed", "0", "--walks", "20", "--depth", "30"],
+    "simulate_deadlock": ["simulate", os.path.join(SPECS, "portoy.tla"),
+                          "--cfg", os.path.join(SPECS, "portoy.cfg"),
+                          "--seed", "3", "--coverage"],
+}
+
+
+@pytest.mark.parametrize("case", list(SUBCOMMANDS))
+def test_subcommand_matches_reference(case, tmp_path, capsys, monkeypatch):
+    monkeypatch.chdir(_files(tmp_path))
+    argv = SUBCOMMANDS[case]
+    rj = _run(jmain, argv, capsys)
+    rt = _run(tmain, argv, capsys)
+    assert rt == rj
+    assert rt[0] == (1 if case in ("simulate_assert", "simulate_deadlock")
+                     else 0)
+
+
+ANALYZE = {
+    "warn_clean": (["viewtoy.tla", "--analyze", "warn"], 0),
+    "strict_clean": (["viewtoy.tla", "--analyze", "strict"], 0),
+    "warn_linttoy": (["linttoy.tla", "--analyze", "warn"], 2),
+    "strict_linttoy": (["linttoy.tla", "--analyze", "strict"], 2),
+    "warn_waived": (["constoy.tla", "--analyze", "warn"], 0),
+}
+
+
+@pytest.mark.parametrize("case", list(ANALYZE))
+def test_check_analyze_matches_reference(case, capsys, monkeypatch):
+    monkeypatch.chdir(SPECS)
+    argv, rc = ANALYZE[case]
+    (rj, lj, ej), (rt, lt, et) = _both(argv, capsys)
+    assert rt == rj == rc
+    assert lt == lj
+    assert et == ej
+    if "strict_linttoy" == case:
+        assert "--analyze=strict refused the run" in et
+        assert "JMC101" in et and "JMC202" in et
+
+
+def test_invalid_analyze_env_exits_2(capsys, monkeypatch):
+    monkeypatch.chdir(SPECS)
+    monkeypatch.setenv("JAXMC_ANALYZE", "stirct")
+    (rj, lj, ej), (rt, lt, et) = _both(["viewtoy.tla"], capsys)
+    assert rt == rj == 2
+    assert et == ej == ("error: invalid --analyze/JAXMC_ANALYZE value "
+                        "'stirct' (expected off, warn or strict)\n")
+    assert lt == lj == []

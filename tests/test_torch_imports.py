@@ -52,6 +52,19 @@ def test_generated_kernel_modules_are_checked():
             "jaxmc_torch/compile/cgen.py"} <= rel
 
 
+def test_session_and_analysis_modules_are_checked():
+    """The copies of the session stages, the corpus sweep and the
+    static analysis are port files like any other: no jax, no jaxmc."""
+    rel = {os.path.relpath(p, ROOT) for p in _port_files()}
+    assert {"jaxmc_torch/corpus.py", "jaxmc_torch/session.py",
+            "jaxmc_torch/meshbench.py",
+            "jaxmc_torch/analyze/verdicts.py",
+            "jaxmc_torch/analyze/lint.py",
+            "jaxmc_torch/analyze/pylint.py",
+            "jaxmc_torch/analyze/__main__.py",
+            "jaxmc_torch/engine/simulate.py"} <= rel
+
+
 def test_cpu_engine_builds_no_generated_source(monkeypatch):
     """A CPU engine keeps the emitter: no capture, no source, no nvcc."""
     from jaxmc_torch.backend.bfs import TorchExplorer

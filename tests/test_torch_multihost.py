@@ -62,7 +62,8 @@ def test_meshbench_check_leg_on_the_cpu(tmp_path, capsys):
     """`python -m jaxmc_torch.meshbench check` on one small rung at
     D = 2: the pinned counts, host_syncs within the level records, and a
     saved baseline for the next run's gate."""
-    from jaxmc_torch.meshbench import RUNGS, _parse_rungs, main
+    from jaxmc_torch.corpus import case_for_cfg
+    from jaxmc_torch.meshbench import main
     rc = main(["check", "--devices", "2", "--rung", "specs/constoy.tla",
                "--device", "cpu", "--out-dir", str(tmp_path),
                "--timeout", "240"])
@@ -70,8 +71,8 @@ def test_meshbench_check_leg_on_the_cpu(tmp_path, capsys):
     assert rc == 0, out
     assert "MESHBENCH ok constoy D=2 exchange=a2a merge=rank: 43 gen / " \
         "21 distinct" in out
-    # the rung has a pin (jaxmc/corpus.py's), and it held
-    assert RUNGS[tuple(_parse_rungs(["specs/constoy.tla"])[0])][:2] == \
-        (21, 43)
+    # the rung has a pin (the corpus manifest's), and it held
+    case = case_for_cfg("constoy.cfg")
+    assert (case.distinct, case.generated) == (21, 43)
     assert "counts" not in out
     assert list(tmp_path.glob("*constoy_d2.baseline.json"))

@@ -11,10 +11,9 @@ REFERENCE's own validate_summary and validate_trace_event.  Exact
 everywhere, walls excepted: `wall_s` fields are dropped, and in stdout
 the throughput line's states/sec, backend name and wall and the ETA
 suffix's seconds are masked (the backend name is `jax` against
-`torch:cpu` by design).  The reference's spans with no counterpart in
-the port (jaxmc_torch.obs.schema.PORT_ABSENT_SPANS: `analyze_arms`,
-the static demotion prediction the port lacks) are dropped from its
-phase list."""
+`torch:cpu` by design).  Every span of the reference has its
+counterpart in the port, the demotion prediction's `analyze_arms`
+included, so the phase lists are equal."""
 
 import contextlib
 import io
@@ -27,7 +26,6 @@ import pytest
 from jaxmc.cli import main as jmain
 from jaxmc.obs.schema import validate_summary, validate_trace_event
 from jaxmc_torch.cli import main as tmain
-from jaxmc_torch.obs.schema import PORT_ABSENT_SPANS
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPECS = os.path.join(ROOT, "specs")
@@ -37,8 +35,6 @@ CASES = {
     "transfer_scaled_20000": (["transfer_scaled.tla", "--max-states",
                                "20000"], 0),
 }
-# the spans the port names as having no counterpart, with the reason
-ABSENT = {"analyze_arms"}
 _RUNS = {}
 
 
@@ -104,8 +100,7 @@ def test_level_records_agree(runs):
 @pytest.mark.parametrize("runs", list(CASES), indirect=True)
 def test_phase_names_in_order(runs):
     ref, port = runs
-    assert set(PORT_ABSENT_SPANS) == ABSENT
-    want = [p["name"] for p in ref[2]["phases"] if p["name"] not in ABSENT]
+    want = [p["name"] for p in ref[2]["phases"]]
     assert [p["name"] for p in port[2]["phases"]] == want
 
 
