@@ -1415,6 +1415,19 @@ def device_ms(fn, key, reps=10, flush=False):
                if key in e.key) / reps / 1e3
 
 
+def k8_twice(call, twin):
+    """K8 called twice in a row against its twin: the largest difference
+    over the whole idx[:cap] and the six scalars of either call; the two
+    calls must also agree with each other bit for bit."""
+    outs = [call() for _ in range(2)]
+    torch.cuda.synchronize()
+    if _max_abs(outs[0], outs[1]):
+        raise AssertionError("resident_compact: two calls on the same "
+                             "inputs differ")
+    return max(_max_abs(o[0], twin[0]) + _max_abs(o[1], twin[1])
+               for o in outs)
+
+
 def check_resident(captured, launches, tag="14 resident"):
     """K8 at both sites and K9 against their twins, bit for bit, on the
     captured inputs; timed beside the twins, their byte bounds and, for
@@ -1425,10 +1438,10 @@ def check_resident(captured, launches, tag="14 resident"):
     for site in ("chunk", "explore"):
         mask, cap, flim, aok, ov = captured["k8_" + site]
         kw = {} if site == "chunk" else {"site": "explore"}
-        k = ops.resident_compact(mask, cap, flim, aok, ov, **kw)
         t = ops.resident_compact_twin(mask, cap, flim, aok, ov)
-        torch.cuda.synchronize()
-        err = max(_max_abs(k[0], t[0]), _max_abs(k[1], t[1]))
+        err = k8_twice(lambda: ops.resident_compact(mask, cap, flim, aok, ov,
+                                                    **kw), t)
+        k = ops.resident_compact(mask, cap, flim, aok, ov, **kw)
         m2 = mask if mask.dim() == 2 else mask.reshape(1, -1)
         A, CH = m2.shape
         C, n = A * CH, int(t[1][0])
@@ -1444,7 +1457,7 @@ def check_resident(captured, launches, tag="14 resident"):
         name = "resident_compact" + ("" if site == "chunk" else "_explore")
         dev_ms = device_ms(lambda: ops.resident_compact(mask, cap, flim,
                                                         aok, ov, **kw),
-                           "compact_")
+                           "res_compact")
         rows.append(_row(
             tag, name + "@4p", "jaxmc_torch/kernels/csrc/resident.cu",
             "jaxmc/backend/bfs.py:2275", launches[name], err,
@@ -1457,7 +1470,9 @@ def check_resident(captured, launches, tag="14 resident"):
             C * per + cap * 4 + 48, C * 8,
             library_ms=cuda_time(library),
             note=f" [{site} site: A={A} CH={CH} flim={fl} set={n} "
-                 f"cap={cap}; 3 launches, device time {dev_ms:.4f} ms]"))
+                 f"cap={cap}; 2 launches a call (pass, unset tail), "
+                 f"device time {dev_ms:.4f} ms; idx[:cap] and the scalars "
+                 f"equal the twin's in two calls in a row]"))
     (carry, bad_row, part, povf, por, keys_c, rows_c, acc_keys, acc_rows,
      frontier, base, CH) = captured["k9"]
     VC, K = keys_c.shape
@@ -1744,10 +1759,9 @@ def check_edges(launches, tag):
             progress_every=1e9).run()
     mask, cap, n = got["mask"], got["cap"], got["n"]
     C = mask.shape[0]
-    k = ops.resident_compact(mask, cap, site="edges")
     t = ops.resident_compact_twin(mask, cap)
-    torch.cuda.synchronize()
-    err = max(_max_abs(k[0], t[0]), _max_abs(k[1], t[1]))
+    err = k8_twice(lambda: ops.resident_compact(mask, cap, site="edges"), t)
+    k = ops.resident_compact(mask, cap, site="edges")
 
     def library():
         return torch.nonzero(mask).flatten()
@@ -1755,7 +1769,7 @@ def check_edges(launches, tag):
         raise AssertionError("torch.nonzero yardstick disagrees")
     dev_ms = device_ms(lambda: ops.resident_compact(mask, cap,
                                                     site="edges"),
-                       "compact_")
+                       "res_compact")
     # the level step reads idx[:n] only; the kernel also writes the C - n
     # unset entries of the stable partition, which nothing reads
     return _row(
@@ -1766,9 +1780,10 @@ def check_edges(launches, tag):
         cuda_time(lambda: ops.resident_compact_twin(mask, cap), reps=3),
         # the mask read once; the n kept indices and the scalars written
         C + n * 4 + 48, C * 8, library_ms=cuda_time(library),
-        note=f" [C={C} edges={n}; 3 launches, device time "
-             f"{dev_ms:.4f} ms; launches summed over the four level-"
-             f"engine kernel runs]")
+        note=f" [C={C} edges={n}; 2 launches a call (pass, unset tail), "
+             f"device time {dev_ms:.4f} ms; launches summed over the four "
+             f"level-engine kernel runs; idx[:cap] and the scalars equal "
+             f"the twin's in two calls in a row]")
 
 
 # ---------------------------------------------------------------------------
@@ -2249,12 +2264,19 @@ def phase_full_sort(pins_4p, tag="20 full sort"):
         del allk, keys
         N = SC + C
         args = (skeys, sflag, perm, SC, C)
-        k = ops.fullsort_dedup(*args)
         t = ops.fullsort_dedup_twin(*args)
-        torch.cuda.synchronize()
         n_new, n_keep = int(t[2][0]), int(t[2][1])
-        err = max(_max_abs(k[2], t[2]), _max_abs(k[0][:n_new], t[0][:n_new]),
-                  _max_abs(k[1][:n_keep], t[1][:n_keep]))
+
+        def prefixes(o):
+            return o[2], o[0][:n_new], o[1][:n_keep]
+        # twice in a row: each call equal to the twin and to the other
+        ks = [ops.fullsort_dedup(*args) for _ in range(2)]
+        torch.cuda.synchronize()
+        if _max_abs(prefixes(ks[0]), prefixes(ks[1])):
+            raise AssertionError("fullsort_dedup: two calls on the same "
+                                 "inputs differ")
+        err = max(_max_abs(prefixes(k), prefixes(t)) for k in ks)
+        k = ks[1]
         # the library sequence: torch.nonzero of both masks, two
         # index_select (the masks, a few elementwise ops, are made
         # outside the timed calls)
@@ -2274,8 +2296,8 @@ def phase_full_sort(pins_4p, tag="20 full sort"):
                 _max_abs(lib[1], k[1][:n_keep]):
             raise AssertionError("nonzero + index_select yardstick "
                                  "disagrees")
-        dev_ms = device_ms(lambda: ops.fullsort_dedup(*args), "fullsort_",
-                           flush=True)
+        dev_ms = device_ms(lambda: ops.fullsort_dedup(*args),
+                           "fullsort_pass", flush=True)
         peak = torch.cuda.max_memory_allocated()
         row = _row(
             tag, "fullsort_dedup@4p", "jaxmc_torch/kernels/csrc/fullsort.cu",
@@ -2291,7 +2313,9 @@ def phase_full_sort(pins_4p, tag="20 full sort"):
             N * (2 * K + 4),
             library_ms=cuda_time(library, reps=5, flush=True),
             note=f" [N={N} SC={SC} C={C} K={K} seen_count={seen_count} "
-                 f"new={n_new} kept={n_keep}; 3 launches; L2 flushed "
+                 f"new={n_new} kept={n_keep}; 1 launch a call, the "
+                 f"prefixes and counts equal the twin's in two calls in a "
+                 f"row; L2 flushed "
                  f"before each call; device time {dev_ms:.4f} ms; whole "
                  f"step full sort {step_full:.2f} ms, rank "
                  f"{step_rank:.2f} ms; peak {peak / 2**30:.2f} GiB]")

@@ -32,6 +32,8 @@ CSRC = os.path.join(HERE, "csrc")
 BUILD_ROOT = os.path.join(HERE, "_build")
 SOURCES = ("unpack", "keys", "probe", "merge", "canon", "por", "hstep",
            "resident", "batch", "fullsort", "oracle", "mesh")
+# headers the sources include (in the digest: a changed header rebuilds)
+HEADERS = ("lookback.cuh",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -54,20 +56,19 @@ ARGTYPES = {
     "jmc_hstep_count": [_P] * 8 + [_I, _I, _I, _P],
     "jmc_hstep_scan": [_P] * 7 + [_I, _I, _P],
     "jmc_hstep_scatter": [_P] * 11 + [_I, _I, _I, _I, _P],
-    "jmc_res_threads": [],
-    "jmc_res_compact_count": [_P] * 7 + [_I, _I, _I, _P],
-    "jmc_res_compact_scan": [_P] * 6 + [_I, _P],
-    "jmc_res_compact_scatter": [_P] * 4 + [_I, _I, _I, _I, _P],
+    "jmc_res_tile": [],
+    "jmc_res_workspace_bytes": [_I],
+    "jmc_res_compact": [_P] * 6 + [_I] * 7 + [_P],
     "jmc_res_fold_copy": [_P] * 5 + [_I, _I64, _I, _I, _P],
     "jmc_res_fold_scalar": [_P] * 6 + [_I64, _I, _I, _I64, _I, _I, _I, _P],
     "jmc_batch_threads": [],
     "jmc_batch_count": [_P] * 9 + [_I, _I, _I, _P],
     "jmc_batch_scan": [_P] * 8 + [_I, _I, _I, _P],
     "jmc_batch_scatter": [_P] * 12 + [_I, _I, _I, _I, _P],
-    "jmc_fullsort_threads": [],
-    "jmc_fullsort_count": [_P] * 4 + [_I64, _I, _P],
-    "jmc_fullsort_scan": [_P] * 5 + [_I, _P],
-    "jmc_fullsort_scatter": [_P] * 7 + [_I64, _I, _I64, _I64, _P],
+    "jmc_fullsort_max_k": [],
+    "jmc_fullsort_tile_rows": [_I],
+    "jmc_fullsort_workspace_bytes": [_I],
+    "jmc_fullsort_dedup": [_P] * 7 + [_I64, _I, _I64, _I64, _I, _I, _I, _P],
     "jmc_oracle_probe": [_P] * 6 + [_I, _I, _P],
     "jmc_mesh_threads": [],
     "jmc_mesh_route_fill": [_P] * 3 + [_I64, _I, _I, _P],
@@ -79,7 +80,8 @@ ARGTYPES = {
     "jmc_mesh_scalars": [_P] * 2 + [_I, _I, _I, _I, _P],
 }
 # return types other than the cudaError_t (an int) of a launch
-RESTYPE = {"jmc_canon_threads": _I64}
+RESTYPE = {"jmc_canon_threads": _I64, "jmc_res_workspace_bytes": _I64,
+           "jmc_fullsort_workspace_bytes": _I64}
 ENTRY = {"unpack": ["jmc_unpack_rows"], "keys": ["jmc_keys_of"],
          "probe": ["jmc_seen_probe"],
          "merge": ["jmc_merge_flags", "jmc_merge_compact",
@@ -88,13 +90,13 @@ ENTRY = {"unpack": ["jmc_unpack_rows"], "keys": ["jmc_keys_of"],
          "por": ["jmc_por_max_arms", "jmc_por_mask"],
          "hstep": ["jmc_hstep_threads", "jmc_hstep_count", "jmc_hstep_scan",
                    "jmc_hstep_scatter"],
-         "resident": ["jmc_res_threads", "jmc_res_compact_count",
-                      "jmc_res_compact_scan", "jmc_res_compact_scatter",
-                      "jmc_res_fold_copy", "jmc_res_fold_scalar"],
+         "resident": ["jmc_res_tile", "jmc_res_workspace_bytes",
+                      "jmc_res_compact", "jmc_res_fold_copy",
+                      "jmc_res_fold_scalar"],
          "batch": ["jmc_batch_threads", "jmc_batch_count", "jmc_batch_scan",
                    "jmc_batch_scatter"],
-         "fullsort": ["jmc_fullsort_threads", "jmc_fullsort_count",
-                      "jmc_fullsort_scan", "jmc_fullsort_scatter"],
+         "fullsort": ["jmc_fullsort_max_k", "jmc_fullsort_tile_rows",
+                      "jmc_fullsort_workspace_bytes", "jmc_fullsort_dedup"],
          "oracle": ["jmc_oracle_probe"],
          "mesh": ["jmc_mesh_threads", "jmc_mesh_route_fill",
                   "jmc_mesh_route_count", "jmc_mesh_route_scan", "jmc_mesh_route_scatter",
@@ -125,8 +127,8 @@ def nvcc_path() -> str:
 def _digest() -> str:
     h = hashlib.sha256()
     h.update(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        with open(os.path.join(CSRC, name + ".cu"), "rb") as fh:
+    for name in [n + ".cu" for n in SOURCES] + list(HEADERS):
+        with open(os.path.join(CSRC, name), "rb") as fh:
             h.update(name.encode() + b"\0" + fh.read())
     return h.hexdigest()[:16]
 

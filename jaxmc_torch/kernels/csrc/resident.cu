@@ -21,24 +21,54 @@
 // flim = C), a cap <= A*CH and, at the chunk site, aok [A, CH] bool and
 // ov [A, CH] int32.  Outputs: idx [cap] int32, the first cap entries of
 // the stable partition (set indices in index order, then the unset ones
-// in index order) — exactly lax.sort's first cap indices; scalars
-// int64[6] = (count of set entries, uncapped; maximum ov over f < flim;
+// in index order) — exactly lax.sort's first cap indices, every one in
+// [0, A*CH), since callers gather with all cap of them; scalars int64[6]
+// = (count of set entries, uncapped; maximum ov over f < flim;
 // assert_any; first assert-bad flat index; dead_any; first dead slot).
 // Bound on the card: bytes.  Each candidate's en, aok and ov read once
 // (6 bytes; 1 byte a mask entry at the explore site), 4 bytes written
 // per index.
-// Design, as K7: three launches, nothing atomic, every output written by
-// one thread, so the result is the same on every run.
-//   a  (jmc_res_compact_count)    one thread per entry (and per slot for
-//                                 dead): per-block set count
-//                                 (__syncthreads_count) and reductions;
-//   b  (jmc_res_compact_scan)     one block: exclusive scan of the block
-//                                 counts, the scalar vector;
-//   c  (jmc_res_compact_scatter)  one thread per entry: a set entry's
-//                                 rank in its block from warp ballots
-//                                 plus the block offset is its slot; an
-//                                 unset entry's slot is count + its
-//                                 index - the set entries before it.
+// Design: a single-pass stable compaction with decoupled look-back
+// (lookback.cuh), then a launch for the unset tail: 2 launches a call.
+//   a  (res_compact_pass)  one block a tile of kTile = 4,096 entries
+//        (256 threads x 16: one 16-byte load of the mask a thread; at the
+//        chunk site also aok, 16 bytes, and ov, 64 bytes; the slot f =
+//        i % CH is taken once a thread and then walked).  A thread's set
+//        entries are ranked by a block scan of its popcount and staged in
+//        shared memory; the tile publishes its set count, its first warp
+//        looks back over earlier tiles a warp's width at a time, then
+//        publishes the inclusive prefix and keeps the exclusive one in
+//        toff; the warps write the staged indices idx[excl + j], j <
+//        count, as contiguous runs.  Tiles are ordered by a ticket from
+//        an atomic counter, not by blockIdx: a tile with a smaller ticket
+//        has started, so the look-back never waits on a tile that is not
+//        resident.  The reductions (ovmax, the first assert-bad index,
+//        the first dead slot) are folded per tile with atomicMax on three
+//        int32 words (the two "first" indices as kNone - i), which are
+//        order-free; the dead-slot test reads the A rows of slot f, the
+//        slots spread evenly over the tiles.  The tile with the last
+//        ticket writes the count.
+//   b  (res_compact_tail)  one block a tile below cap / kTile (a later
+//        tile has at least cap - count unset entries before it): the
+//        unset entry u (its rank
+//        among the unset ones) belongs at idx[count + u] for u < cap -
+//        count.  A tile's unset entries before it number tile * kTile -
+//        toff[tile]; a tile whose range reaches below cap - count loads
+//        its mask again, ranks its unset entries the same way and writes
+//        them as contiguous runs.  Block 0 writes the five reductions into
+//        scalars and sets their words back to 0.
+// Bytes besides the bound: a second read of the mask over the tiles that
+// hold the first cap - count unset entries (at most C bytes), 16 bytes a
+// tile of status and offset.  Scratch: a workspace the wrapper caches
+// for each device and stream (status words, toff, the ticket, the
+// reductions); the status words carry the call's epoch, so nothing is
+// cleared between calls, and the ticket and the reductions are left at 0
+// by the pass and the tail.  A call's two launches must not interleave
+// with another call's on its workspace: the wrapper enqueues them under
+// a lock and refuses CUDA graph capture (a replay would reuse one epoch
+// and read the previous replay's words as this one's).  Every output element is written by one thread, the
+// look-back's sums do not depend on timing and the only atomics are max,
+// so the result is the same on every run.
 //
 // K9 inputs: the level carry int64[7] = (stat, acc_n, gen, ovcode,
 // por_ample, por_expanded, por_masked) and bad_row [PW] in device memory,
@@ -60,12 +90,18 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "lookback.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kScanThreads = 1024;
 constexpr int32_t kNone = 0x7FFFFFFF;
+// K8: entries a thread (one 16-byte load of the mask), threads a tile
+// and a tile (chosen by a sweep on the card, PERF.md)
+constexpr int kItems = 16;
+constexpr int kTileThreads = 256;
+constexpr int kTileWarps = kTileThreads / 32;
+constexpr int kTile = kTileThreads * kItems;
 
 // the reference's ST_* codes (jaxmc/backend/bfs.py:58-68)
 constexpr int64_t kContinue = 0;
@@ -81,146 +117,217 @@ __device__ __forceinline__ int32_t warp_max(int32_t v) {
   return v;
 }
 
-__device__ __forceinline__ int32_t warp_min(int32_t v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = min(v, __shfl_down_sync(0xFFFFFFFFu, v, o));
-  return v;
+// bit k set when byte k of p[0..n) is nonzero: one 16-byte load when the
+// thread's entries are whole and aligned
+__device__ __forceinline__ uint32_t load_bits(const bool* p, int n) {
+  uint32_t b = 0;
+  if (n == kItems && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+#pragma unroll
+    for (int q = 0; q < kItems / 16; ++q) {
+      const uint4 v = reinterpret_cast<const uint4*>(p)[q];
+      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int k = 0; k < 16; ++k)
+        if ((w[k >> 2] >> (8 * (k & 3))) & 0xFFu) b |= 1u << (16 * q + k);
+    }
+    return b;
+  }
+  for (int k = 0; k < n; ++k)
+    if (p[k]) b |= 1u << k;
+  return b;
 }
 
-__global__ void compact_count_kernel(const bool* __restrict__ mask,
-                                     const bool* __restrict__ aok,
-                                     const int32_t* __restrict__ ov,
-                                     int32_t* __restrict__ bcnt,
-                                     int32_t* __restrict__ bov,
-                                     int32_t* __restrict__ bab,
-                                     int32_t* __restrict__ bdead, int a_n,
-                                     int32_t ch, int32_t flim) {
-  __shared__ int32_t s_ov[kWarps], s_ab[kWarps], s_dead[kWarps];
-  const int64_t c = static_cast<int64_t>(a_n) * ch;
-  const int32_t i = blockIdx.x * kThreads + threadIdx.x;
-  const bool chunk = aok != nullptr;
-  bool v = false;
-  int32_t ovv = 0, ab = kNone, dd = kNone;
-  if (i < c) {
-    const bool fv = (i % ch) < flim;
-    v = fv && mask[i];
-    if (chunk && fv) {
-      ovv = ov[i];
-      if (!aok[i]) ab = i;
-    }
+__device__ __forceinline__ uint32_t low_bits(int n) {
+  return n >= 32 ? 0xFFFFFFFFu : (1u << n) - 1u;
+}
+
+// bit k set when slot (i0 + k) % ch is below flim: one modulo a thread,
+// then the slot walks
+__device__ __forceinline__ uint32_t slot_bits(int64_t i0, int n, int32_t ch,
+                                              int32_t flim) {
+  if (flim >= ch) return low_bits(n);
+  int32_t f = static_cast<int32_t>(i0 % ch);
+  uint32_t b = 0;
+  for (int k = 0; k < n; ++k) {
+    if (f < flim) b |= 1u << k;
+    if (++f == ch) f = 0;
   }
-  if (chunk && i < ch) {
-    bool any = false;
-    for (int a = 0; a < a_n && !any; ++a)
-      any = mask[static_cast<int64_t>(a) * ch + i];
-    if (i < flim && !any) dd = i;
-  }
-  const int32_t cnt = __syncthreads_count(v);
-  ovv = warp_max(ovv);
-  ab = warp_min(ab);
-  dd = warp_min(dd);
+  return b;
+}
+
+// the thread's entries of tile `tile`: its first flat index, their
+// number below C and the bitmap of the set ones
+struct Entries {
+  int64_t i0;
+  int n;
+  uint32_t fv;
+  uint32_t set;
+};
+
+__device__ __forceinline__ Entries tile_entries(const bool* mask, int tile,
+                                                int64_t c, int32_t ch,
+                                                int32_t flim) {
+  Entries e;
+  e.i0 = static_cast<int64_t>(tile) * kTile +
+         static_cast<int64_t>(threadIdx.x) * kItems;
+  const int64_t left = c - e.i0;
+  e.n = left <= 0 ? 0 : (left >= kItems ? kItems : static_cast<int>(left));
+  e.fv = e.n ? slot_bits(e.i0, e.n, ch, flim) : 0u;
+  e.set = e.fv ? load_bits(mask + e.i0, e.n) & e.fv : 0u;
+  return e;
+}
+
+// exclusive block scan of one count a thread (s_warp: kTileWarps words, free
+// on entry); *total is the block's sum
+__device__ __forceinline__ int block_scan(int v, int* s_warp, int* total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    s_ov[warp] = ovv;
-    s_ab[warp] = ab;
-    s_dead[warp] = dd;
+  int x = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(jmc_lb::kFull, x, o);
+    if (lane >= o) x += y;
   }
+  if (lane == 31) s_warp[warp] = x;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    int32_t m = 0, b = kNone, e = kNone;
-    for (int w = 0; w < kWarps; ++w) {
-      m = max(m, s_ov[w]);
-      b = min(b, s_ab[w]);
-      e = min(e, s_dead[w]);
-    }
-    bcnt[blockIdx.x] = cnt;
-    bov[blockIdx.x] = m;
-    bab[blockIdx.x] = b;
-    bdead[blockIdx.x] = e;
+  int before = 0, sum = 0;
+  for (int w = 0; w < kTileWarps; ++w) {
+    const int s = s_warp[w];
+    if (w < warp) before += s;
+    sum += s;
+  }
+  *total = sum;
+  return before + x - v;
+}
+
+// stage the flat indices of the bits of b at s_idx[r], r from rank
+__device__ __forceinline__ void stage(int32_t* s_idx, int rank, uint32_t b,
+                                      int64_t i0) {
+  while (b) {
+    const int k = __ffs(b) - 1;
+    b &= b - 1;
+    s_idx[rank++] = static_cast<int32_t>(i0 + k);
   }
 }
 
-__global__ void compact_scan_kernel(const int32_t* __restrict__ bcnt,
-                                    const int32_t* __restrict__ bov,
-                                    const int32_t* __restrict__ bab,
-                                    const int32_t* __restrict__ bdead,
-                                    int32_t* __restrict__ boff,
-                                    int64_t* __restrict__ scalars,
-                                    int32_t nb) {
-  __shared__ int32_t s_sum[kScanThreads];
-  __shared__ int32_t s_ov[kScanThreads / 32], s_ab[kScanThreads / 32],
-      s_dead[kScanThreads / 32];
-  const int t = threadIdx.x;
-  const int32_t per = (nb + kScanThreads - 1) / kScanThreads;
-  const int32_t lo = min(nb, t * per), hi = min(nb, lo + per);
-  int32_t sum = 0, m = 0, ab = kNone, dd = kNone;
-  for (int32_t j = lo; j < hi; ++j) {
-    sum += bcnt[j];
-    m = max(m, bov[j]);
-    ab = min(ab, bab[j]);
-    dd = min(dd, bdead[j]);
-  }
-  // inclusive Hillis-Steele scan of the per-thread sums
-  s_sum[t] = sum;
-  __syncthreads();
-  for (int o = 1; o < kScanThreads; o <<= 1) {
-    const int32_t add = t >= o ? s_sum[t - o] : 0;
-    __syncthreads();
-    s_sum[t] += add;
-    __syncthreads();
-  }
-  int32_t run = s_sum[t] - sum;  // exclusive prefix of this segment
-  for (int32_t j = lo; j < hi; ++j) {
-    boff[j] = run;
-    run += bcnt[j];
-  }
-  m = warp_max(m);
-  ab = warp_min(ab);
-  dd = warp_min(dd);
-  if ((t & 31) == 0) {
-    s_ov[t >> 5] = m;
-    s_ab[t >> 5] = ab;
-    s_dead[t >> 5] = dd;
-  }
-  __syncthreads();
-  if (t == 0) {
-    int32_t mm = 0, bb = kNone, ee = kNone;
-    for (int w = 0; w < kScanThreads / 32; ++w) {
-      mm = max(mm, s_ov[w]);
-      bb = min(bb, s_ab[w]);
-      ee = min(ee, s_dead[w]);
-    }
-    scalars[0] = s_sum[kScanThreads - 1];
-    scalars[1] = mm;
-    scalars[2] = bb != kNone;
-    scalars[3] = bb != kNone ? bb : 0;
-    scalars[4] = ee != kNone;
-    scalars[5] = ee != kNone ? ee : 0;
-  }
-}
-
-__global__ void compact_scatter_kernel(const bool* __restrict__ mask,
-                                       const int32_t* __restrict__ boff,
-                                       const int64_t* __restrict__ scalars,
-                                       int32_t* __restrict__ idx, int a_n,
-                                       int32_t ch, int32_t flim,
-                                       int32_t cap) {
-  __shared__ int32_t s_warp[kWarps];
+__global__ void __launch_bounds__(kTileThreads) res_compact_pass_kernel(
+    const bool* __restrict__ mask, const bool* __restrict__ aok,
+    const int32_t* __restrict__ ov, int32_t* __restrict__ idx,
+    int64_t* __restrict__ scalars, uint64_t* __restrict__ status,
+    int32_t* __restrict__ toff, uint32_t* __restrict__ ticket,
+    int32_t* __restrict__ red, int a_n, int32_t ch, int32_t flim,
+    int32_t cap, int ntiles, int32_t spt, uint32_t epoch) {
+  __shared__ int32_t s_idx[kTile];
+  __shared__ int s_warp[kTileWarps];
+  __shared__ int32_t s_red[3][kTileWarps];
+  __shared__ int s_tile;
+  __shared__ uint32_t s_excl;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tile = jmc_lb::take_ticket(ticket, ntiles, &s_tile);
   const int64_t c = static_cast<int64_t>(a_n) * ch;
-  const int32_t i = blockIdx.x * kThreads + threadIdx.x;
-  const bool in = i < c;
-  const bool v = in && (i % ch) < flim && mask[i];
-  const unsigned ball = __ballot_sync(0xFFFFFFFFu, v);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) s_warp[warp] = __popc(ball);
+  const Entries e = tile_entries(mask, tile, c, ch, flim);
+  // the chunk site's reductions, each as a maximum with identity 0
+  int32_t r_ov = 0, r_ab = 0, r_dead = 0;
+  if (aok != nullptr) {
+    if (e.fv) {
+      const uint32_t bad = e.fv & ~load_bits(aok + e.i0, e.n);
+      if (bad) r_ab = kNone - static_cast<int32_t>(e.i0 + __ffs(bad) - 1);
+      const int32_t* o = ov + e.i0;
+      if (e.n == kItems && (reinterpret_cast<uintptr_t>(o) & 15) == 0) {
+#pragma unroll
+        for (int q = 0; q < kItems / 4; ++q) {
+          const int4 v = reinterpret_cast<const int4*>(o)[q];
+          const int32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            if ((e.fv >> (4 * q + u)) & 1u) r_ov = max(r_ov, w[u]);
+        }
+      } else {
+        for (int k = 0; k < e.n; ++k)
+          if ((e.fv >> k) & 1u) r_ov = max(r_ov, o[k]);
+      }
+    }
+    // dead slots: this tile's share of [0, flim), a slot dead when no
+    // row of the grid sets it; f rises in a thread, so its first is its
+    // least
+    const int64_t f_lo = static_cast<int64_t>(tile) * spt;
+    const int64_t f_hi = f_lo + spt < flim ? f_lo + spt : flim;
+    for (int64_t f = f_lo + tid; f < f_hi; f += kTileThreads) {
+      bool any = false;
+      for (int a = 0; a < a_n && !any; ++a)
+        any = mask[static_cast<int64_t>(a) * ch + f];
+      if (!any) {
+        r_dead = kNone - static_cast<int32_t>(f);
+        break;
+      }
+    }
+  }
+  int nset;
+  const int rank = block_scan(__popc(e.set), s_warp, &nset);
+  stage(s_idx, rank, e.set, e.i0);
+  if (aok != nullptr) {
+    r_ov = warp_max(r_ov);
+    r_ab = warp_max(r_ab);
+    r_dead = warp_max(r_dead);
+    if (lane == 0) {
+      s_red[0][warp] = r_ov;
+      s_red[1][warp] = r_ab;
+      s_red[2][warp] = r_dead;
+    }
+  }
   __syncthreads();
-  if (!in) return;
-  // set entries before i: those of earlier blocks, warps and lanes
-  int32_t before = boff[blockIdx.x] + __popc(ball & ((1u << lane) - 1u));
-  for (int w = 0; w < warp; ++w) before += s_warp[w];
-  const int32_t pos =
-      v ? before : static_cast<int32_t>(scalars[0]) + (i - before);
-  if (pos < cap) idx[pos] = i;
+  if (warp == 0) {
+    if (aok != nullptr && lane < 3) {
+      int32_t m = 0;
+      for (int w = 0; w < kTileWarps; ++w) m = max(m, s_red[lane][w]);
+      if (m > 0) atomicMax(red + lane, m);
+    }
+    const uint32_t excl = jmc_lb::look_back(status, tile, epoch,
+                                            static_cast<uint32_t>(nset));
+    if (lane == 0) {
+      s_excl = excl;
+      toff[tile] = static_cast<int32_t>(excl);
+      if (tile == ntiles - 1) scalars[0] = static_cast<int64_t>(excl) + nset;
+    }
+  }
+  __syncthreads();
+  const int64_t ex = s_excl;
+  for (int j = tid; j < nset; j += kTileThreads) {
+    const int64_t pos = ex + j;
+    if (pos < cap) idx[pos] = s_idx[j];
+  }
+}
+
+__global__ void __launch_bounds__(kTileThreads) res_compact_tail_kernel(
+    const bool* __restrict__ mask, int32_t* __restrict__ idx,
+    int64_t* __restrict__ scalars, const int32_t* __restrict__ toff,
+    int32_t* __restrict__ red, int a_n, int32_t ch, int32_t flim,
+    int32_t cap) {
+  __shared__ int32_t s_idx[kTile];
+  __shared__ int s_warp[kTileWarps];
+  const int tile = blockIdx.x, tid = threadIdx.x;
+  if (tile == 0 && tid == 0) {
+    const int32_t m = red[0], b = red[1], d = red[2];
+    scalars[1] = m;
+    scalars[2] = b != 0;
+    scalars[3] = b != 0 ? kNone - b : 0;
+    scalars[4] = d != 0;
+    scalars[5] = d != 0 ? kNone - d : 0;
+    red[0] = red[1] = red[2] = 0;
+  }
+  const int64_t total = scalars[0];
+  const int64_t need = cap - total;
+  const int64_t ub = static_cast<int64_t>(tile) * kTile - toff[tile];
+  if (ub >= need) return;
+  const int64_t c = static_cast<int64_t>(a_n) * ch;
+  const Entries e = tile_entries(mask, tile, c, ch, flim);
+  const uint32_t unset = low_bits(e.n) & ~e.set;
+  int nun;
+  const int rank = block_scan(__popc(unset), s_warp, &nun);
+  stage(s_idx, rank, unset, e.i0);
+  __syncthreads();
+  for (int j = tid; j < nun; j += kTileThreads) {
+    const int64_t u = ub + j;
+    if (u < need) idx[total + u] = s_idx[j];
+  }
 }
 
 __global__ void fold_copy_kernel(const int64_t* __restrict__ carry,
@@ -290,40 +397,40 @@ inline int32_t blocks_for(int64_t n) {
   return static_cast<int32_t>(b < 1 ? 1 : b);
 }
 
+
 }  // namespace
 
-extern "C" int jmc_res_threads() { return kThreads; }
+extern "C" int jmc_res_tile() { return kTile; }
 
-extern "C" cudaError_t jmc_res_compact_count(
-    const bool* mask, const bool* aok, const int32_t* ov, int32_t* bcnt,
-    int32_t* bov, int32_t* bab, int32_t* bdead, int a_n, int32_t ch,
-    int32_t flim, cudaStream_t stream) {
-  const int64_t c = static_cast<int64_t>(a_n) * ch;
-  const int32_t nb = blocks_for(c > ch ? c : ch);
-  compact_count_kernel<<<nb, kThreads, 0, stream>>>(
-      mask, aok, ov, bcnt, bov, bab, bdead, a_n, ch, flim);
-  return cudaGetLastError();
+// K8's workspace for `tiles` tiles: status words [tiles] uint64, toff
+// [tiles] int32, the ticket, the three reductions; zeros when made
+extern "C" int64_t jmc_res_workspace_bytes(int tiles) {
+  return static_cast<int64_t>(tiles) * 12 + 16;
 }
 
-extern "C" cudaError_t jmc_res_compact_scan(const int32_t* bcnt,
-                                            const int32_t* bov,
-                                            const int32_t* bab,
-                                            const int32_t* bdead,
-                                            int32_t* boff, int64_t* scalars,
-                                            int32_t nb, cudaStream_t stream) {
-  compact_scan_kernel<<<1, kScanThreads, 0, stream>>>(bcnt, bov, bab, bdead,
-                                                      boff, scalars, nb);
-  return cudaGetLastError();
-}
-
-extern "C" cudaError_t jmc_res_compact_scatter(
-    const bool* mask, const int32_t* boff, const int64_t* scalars,
-    int32_t* idx, int a_n, int32_t ch, int32_t flim, int32_t cap,
-    cudaStream_t stream) {
-  const int64_t c = static_cast<int64_t>(a_n) * ch;
-  if (c <= 0 || cap <= 0) return cudaSuccess;
-  compact_scatter_kernel<<<blocks_for(c), kThreads, 0, stream>>>(
-      mask, boff, scalars, idx, a_n, ch, flim, cap);
+extern "C" cudaError_t jmc_res_compact(const bool* mask, const bool* aok,
+                                       const int32_t* ov, int32_t* idx,
+                                       int64_t* scalars, void* ws, int a_n,
+                                       int32_t ch, int32_t flim, int32_t cap,
+                                       int ntiles, int ws_tiles, int epoch,
+                                       cudaStream_t stream) {
+  uint64_t* status = static_cast<uint64_t*>(ws);
+  int32_t* toff = reinterpret_cast<int32_t*>(status + ws_tiles);
+  uint32_t* ticket = reinterpret_cast<uint32_t*>(toff + ws_tiles);
+  int32_t* red = reinterpret_cast<int32_t*>(ticket + 1);
+  const int32_t spt = ch > 0 ? (ch + ntiles - 1) / ntiles : 0;
+  res_compact_pass_kernel<<<ntiles, kTileThreads, 0, stream>>>(
+      mask, aok, ov, idx, scalars, status, toff, ticket, red, a_n, ch, flim,
+      cap, ntiles, spt, static_cast<uint32_t>(epoch));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // tile t's unset entries before it, t * kTile - toff[t], are at least
+  // t * kTile - count, so only tiles below cap / kTile reach idx
+  const int64_t reach = (static_cast<int64_t>(cap) + kTile - 1) / kTile;
+  const int tail = reach < 1 ? 1 : (reach < ntiles ? static_cast<int>(reach)
+                                                   : ntiles);
+  res_compact_tail_kernel<<<tail, kTileThreads, 0, stream>>>(
+      mask, idx, scalars, toff, red, a_n, ch, flim, cap);
   return cudaGetLastError();
 }
 

@@ -73,6 +73,7 @@ compile/lanes.py), with the lifted constants bound from the same
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, Tuple
 
 import numpy as np
@@ -189,11 +190,12 @@ def _same_device(name: str, *xs: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensors on {x.device} and {dev}")
 
 
-def _launch(name: str, rc: int) -> None:
+def _launch(name: str, rc: int, n: int = 1) -> None:
+    """Count the n kernels one C entry point launched, or raise."""
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError "
                            f"{rc} (cudaGetLastError after the launch)")
-    LAUNCHES[name] += 1
+    LAUNCHES[name] += n
 
 
 def _ptr(x: torch.Tensor):
@@ -853,12 +855,68 @@ def resident_compact_twin(mask: torch.Tensor, cap: int, flim=None,
     return idx.to(torch.int32), scalars
 
 
+class _Workspace:
+    """The scratch of a single-pass compaction (K8, K11), cached across
+    calls for each (device, stream): the tiles' status words, their side
+    arrays and the ticket counter, zeros when made.  Each call takes the
+    next epoch (1 .. 2**30 - 1), which tags the status words it
+    publishes, so a word of an earlier call reads as unpublished and
+    nothing is cleared between calls; the kernels leave the ticket (and
+    K8's reductions) at 0.  A workspace is safe while its calls run one
+    after another: a call holds `lock` from `take` until its launches
+    are enqueued, so calls from several threads on one stream do not
+    interleave their kernels, and another stream gets a workspace of its
+    own.  Under CUDA graph capture the epoch would be a fixed argument
+    of every replay, so the wrappers refuse it (`stream_for`).  A failed
+    launch drops the workspace."""
+
+    EPOCHS = 2**30
+
+    def __init__(self, nbytes):
+        self._nbytes = nbytes          # the kernel's layout: tiles -> bytes
+        self._by_key: Dict[tuple, list] = {}
+        self.lock = threading.Lock()
+
+    def take(self, lib, dev: torch.device, stream: int, tiles: int):
+        """(pointer, capacity in tiles, epoch) for a call of `tiles` on
+        `stream`; the caller holds `lock`."""
+        key = (str(dev), stream)
+        ent = self._by_key.get(key)
+        if ent is None or ent[1] < tiles:
+            cap = max(tiles, 2 * ent[1] if ent else 0)
+            nb = int(getattr(lib, self._nbytes)(cap))
+            ent = [torch.zeros(-(-nb // 8), dtype=torch.int64, device=dev),
+                   cap, 0]
+            self._by_key[key] = ent
+        elif ent[2] == self.EPOCHS - 1:
+            ent[0].zero_()
+            ent[2] = 0
+        ent[2] += 1
+        return ent[0].data_ptr(), ent[1], ent[2]
+
+    def drop(self, dev: torch.device, stream: int) -> None:
+        self._by_key.pop((str(dev), stream), None)
+
+    @staticmethod
+    def stream_for(name: str, dev: torch.device) -> int:
+        """The current stream of dev, refused while it is captured."""
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{name}: not capturable in a CUDA graph "
+                               f"(each call takes a new epoch)")
+        return torch.cuda.current_stream(dev).cuda_stream
+
+
+_K8_WS = _Workspace("jmc_res_workspace_bytes")
+_K11_WS = _Workspace("jmc_fullsort_workspace_bytes")
+
+
 def resident_compact(mask: torch.Tensor, cap: int, flim=None, aok=None,
                      ov=None, site: str = ""):
-    """K8: resident_compact_twin's function in three launches (block
-    counts and reductions, one-block scan, scatter).  Nothing is read
-    back to the host.  A launch counts under resident_compact, or
-    resident_compact_<site>."""
+    """K8: resident_compact_twin's function in two launches (the single
+    pass with decoupled look-back, the unset tail); idx and the scalars
+    are views of one allocation, the scratch is the cached workspace.
+    Nothing is read back to the host.  A launch counts under
+    resident_compact, or resident_compact_<site>."""
     _check(mask, "resident_compact.mask", mask.dim(), torch.bool)
     if mask.dim() not in (1, 2):
         raise ValueError("resident_compact: mask is [A, CH] or [C]")
@@ -889,28 +947,20 @@ def resident_compact(mask: torch.Tensor, cap: int, flim=None, aok=None,
     from . import build
     lib = build.library("resident")
     dev = m.device
-    threads = int(lib.jmc_res_threads())
-    nb = max(1, -(-max(C, CH) // threads))
-    part = torch.empty((5, nb), dtype=torch.int32, device=dev)
-    scalars = torch.empty((6,), dtype=torch.int64, device=dev)
-    idx = torch.empty((cap,), dtype=torch.int32, device=dev)
-    null = ctypes.c_void_p(0)
-    rc = lib.jmc_res_compact_count(
-        _ptr(m), _ptr(aok) if aok is not None else null,
-        _ptr(ov) if ov is not None else null, _ptr(part[0]), _ptr(part[1]),
-        _ptr(part[2]), _ptr(part[3]), ctypes.c_int(A), ctypes.c_int(CH),
-        ctypes.c_int(flim), _stream())
-    _launch(name, rc)
-    rc = lib.jmc_res_compact_scan(
-        _ptr(part[0]), _ptr(part[1]), _ptr(part[2]), _ptr(part[3]),
-        _ptr(part[4]), _ptr(scalars), ctypes.c_int(nb), _stream())
-    _launch(name, rc)
-    if C and cap:
-        rc = lib.jmc_res_compact_scatter(
-            _ptr(m), _ptr(part[4]), _ptr(scalars), _ptr(idx),
-            ctypes.c_int(A), ctypes.c_int(CH), ctypes.c_int(flim),
-            ctypes.c_int(cap), _stream())
-        _launch(name, rc)
+    tiles = max(1, -(-C // int(lib.jmc_res_tile())))
+    stream = _Workspace.stream_for(name, dev)
+    out = torch.empty(6 + (cap + 1) // 2, dtype=torch.int64, device=dev)
+    scalars, idx = out[:6], out[6:].view(torch.int32)[:cap]
+    with _K8_WS.lock:
+        ws, ws_tiles, epoch = _K8_WS.take(lib, dev, stream, tiles)
+        rc = lib.jmc_res_compact(
+            m.data_ptr(), aok.data_ptr() if aok is not None else None,
+            ov.data_ptr() if ov is not None else None, idx.data_ptr(),
+            scalars.data_ptr(), ws, A, CH, flim, cap, tiles, ws_tiles,
+            epoch, stream)
+        if rc != 0:
+            _K8_WS.drop(dev, stream)
+    _launch(name, rc, 2)
     return idx, scalars
 
 
@@ -1170,11 +1220,12 @@ def fullsort_dedup_twin(skeys: torch.Tensor, sflag: torch.Tensor,
 
 def fullsort_dedup(skeys: torch.Tensor, sflag: torch.Tensor,
                    perm: torch.Tensor, SC: int, C: int):
-    """K11: fullsort_dedup_twin's function in three launches (block
-    counts, one-block scan, ballot-ranked scatter); nothing is read
-    back.  Equal to the twin over new_cidx[:new_count] and
-    seen2[:seen_count2]; the kernel writes nothing past them (new_cidx
-    starts as zeros, seen2 as torch.empty) and nothing reads them."""
+    """K11: fullsort_dedup_twin's function in one launch (a single pass
+    with decoupled look-back over both counts; the scratch is the cached
+    workspace); nothing is read back.  Equal to the twin over
+    new_cidx[:new_count] and seen2[:seen_count2]; the kernel writes
+    nothing past them (new_cidx starts as zeros, seen2 as torch.empty)
+    and nothing reads them."""
     _check(skeys, "fullsort_dedup.skeys", 2)
     _check(sflag, "fullsort_dedup.sflag", 1)
     _check(perm, "fullsort_dedup.perm", 1)
@@ -1191,29 +1242,24 @@ def fullsort_dedup(skeys: torch.Tensor, sflag: torch.Tensor,
     _same_device("fullsort_dedup", skeys, sflag, perm)
     from . import build
     lib = build.library("fullsort")
+    if not 1 <= K <= int(lib.jmc_fullsort_max_k()):
+        raise ValueError(f"fullsort_dedup: key width {K} outside [1, "
+                         f"{int(lib.jmc_fullsort_max_k())}]")
     dev = skeys.device
-    threads = int(lib.jmc_fullsort_threads())
-    nb = max(1, -(-N // threads))
-    bcnt = torch.empty((2, nb), dtype=torch.int32, device=dev)
-    boff = torch.empty((2, nb), dtype=torch.int64, device=dev)
+    tiles = max(1, -(-N // int(lib.jmc_fullsort_tile_rows(K))))
+    stream = _Workspace.stream_for("fullsort_dedup", dev)
     counts = torch.empty((2,), dtype=torch.int64, device=dev)
     new_cidx = torch.zeros((C,), dtype=torch.int32, device=dev)
     seen2 = torch.empty((SC, K), dtype=torch.int32, device=dev)
-    rc = lib.jmc_fullsort_count(_ptr(skeys), _ptr(sflag), _ptr(bcnt[0]),
-                                _ptr(bcnt[1]), ctypes.c_int64(N),
-                                ctypes.c_int(K), _stream())
+    with _K11_WS.lock:
+        ws, ws_tiles, epoch = _K11_WS.take(lib, dev, stream, tiles)
+        rc = lib.jmc_fullsort_dedup(
+            skeys.data_ptr(), sflag.data_ptr(), perm.data_ptr(),
+            new_cidx.data_ptr(), seen2.data_ptr(), counts.data_ptr(), ws,
+            N, K, SC, C, tiles, ws_tiles, epoch, stream)
+        if rc != 0:
+            _K11_WS.drop(dev, stream)
     _launch("fullsort_dedup", rc)
-    rc = lib.jmc_fullsort_scan(_ptr(bcnt[0]), _ptr(bcnt[1]), _ptr(boff[0]),
-                               _ptr(boff[1]), _ptr(counts),
-                               ctypes.c_int(nb), _stream())
-    _launch("fullsort_dedup", rc)
-    if N:
-        rc = lib.jmc_fullsort_scatter(
-            _ptr(skeys), _ptr(sflag), _ptr(perm), _ptr(boff[0]),
-            _ptr(boff[1]), _ptr(new_cidx), _ptr(seen2), ctypes.c_int64(N),
-            ctypes.c_int(K), ctypes.c_int64(SC), ctypes.c_int64(C),
-            _stream())
-        _launch("fullsort_dedup", rc)
     return new_cidx, seen2, counts
 
 

@@ -369,6 +369,24 @@ def test_host_seen_on_the_card_equals_the_cpu(card, spec, cfg, kw):
     assert res["cuda"] == res["cpu"]
 
 
+def _k8_call(mask, cap, flim=None, aok=None, ov=None, site=""):
+    """K8 twice on the same inputs against its twin: the whole idx[:cap]
+    and the six scalars bit for bit, both calls bit-identical, and 2
+    launches a call."""
+    from jaxmc_torch.kernels import ops
+    name = "resident_compact" + ("_" + site if site else "")
+    ops.reset_launches()
+    kw = {"site": site} if site else {}
+    k1 = ops.resident_compact(mask, cap, flim, aok, ov, **kw)
+    k2 = ops.resident_compact(mask, cap, flim, aok, ov, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[name] == 4, ops.LAUNCHES
+    t = ops.resident_compact_twin(mask, cap, flim, aok, ov)
+    for k in (k1, k2):
+        _eq(k[0], t[0])
+        _eq(k[1], t[1])
+
+
 @pytest.mark.parametrize("A,CH,cap", [(1, 64, 64), (13, 4096, 1 << 14),
                                       (33, 65536, 1 << 18),
                                       (7, 1 << 18, 1 << 14)])
@@ -376,8 +394,8 @@ def test_host_seen_on_the_card_equals_the_cpu(card, spec, cfg, kw):
 def test_resident_compact_matches_twin(card, A, CH, cap, p):
     """K8 at the chunk site (a partial last chunk, assert and overflow
     codes, dead slots) and at the explore site ([C] mask capped at
-    FCap): every index of the stable partition and every scalar."""
-    from jaxmc_torch.kernels import ops
+    FCap): every index of the stable partition and every scalar, twice
+    in a row, 2 launches a call (the single pass and the unset tail)."""
     rng = np.random.default_rng(A * 11 + CH)
     cap = min(cap, A * CH)
     for flim in (CH, CH - CH // 3, 0):
@@ -386,17 +404,40 @@ def test_resident_compact_matches_twin(card, A, CH, cap, p):
         ov = torch.as_tensor(np.where(rng.random((A, CH)) < 1e-5,
                                       rng.integers(1, 3, (A, CH)), 0)
                              .astype(np.int32), device=card)
-        k = ops.resident_compact(en, cap, flim, aok, ov)
-        t = ops.resident_compact_twin(en, cap, flim, aok, ov)
-        torch.cuda.synchronize()
-        _eq(k[0], t[0])
-        _eq(k[1], t[1])
-    m = en.reshape(-1).contiguous()
-    k = ops.resident_compact(m, cap, site="explore")
-    t = ops.resident_compact_twin(m, cap)
-    torch.cuda.synchronize()
-    _eq(k[0], t[0])
-    _eq(k[1], t[1])
+        _k8_call(en, cap, flim, aok, ov)
+    _k8_call(en.reshape(-1).contiguous(), cap, site="explore")
+
+
+def _k8_tile():
+    from jaxmc_torch.kernels import build
+    return int(build.library("resident").jmc_res_tile())
+
+
+@pytest.mark.parametrize("size", ["T-1", "T", "T+1", "3T", "2^23+1"])
+@pytest.mark.parametrize("p", [0.0, 0.5, 1.0])
+def test_resident_compact_tile_edges(card, size, p):
+    """K8 at sizes around its tile T: every cap from 0 through cap below
+    the count to cap = C, at both sites, with flim = 0 and a flim that
+    cuts a row; none set, half set, all set."""
+    T = _k8_tile()
+    C = {"T-1": T - 1, "T": T, "T+1": T + 1, "3T": 3 * T,
+         "2^23+1": 2**23 + 1}[size]
+    rng = np.random.default_rng(C + int(p * 10))
+    m = torch.as_tensor(rng.random(C) < p, device=card)
+    n = int(m.sum())
+    for cap in sorted({0, 1, max(n - 7, 0), n // 2, min(n + 5, C), C}):
+        _k8_call(m, cap, site="explore")
+    # the chunk site over the same entries as a grid of A rows
+    A = 3 if C % 3 == 0 else 1
+    CH = C // A
+    en = m.reshape(A, CH)
+    aok = torch.as_tensor(rng.random((A, CH)) > 1e-3, device=card)
+    ov = torch.as_tensor(np.where(rng.random((A, CH)) < 1e-3,
+                                  rng.integers(1, 4, (A, CH)), 0)
+                         .astype(np.int32), device=card)
+    for flim in sorted({0, CH // 2 + 1, CH}):
+        for cap in sorted({0, max(n // 3, 1), C}):
+            _k8_call(en, cap, flim, aok, ov)
 
 
 @pytest.mark.parametrize("case", range(8))
@@ -670,24 +711,20 @@ def test_batch_cohort_on_the_card_equals_the_cpu(card, cohort, tmp_path):
 # K11 fullsort_dedup, the full-sort step, checkpoints and resume
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("SC,C,K", [(64, 32, 3), (1 << 16, 40000, 3),
-                                    (1 << 18, 1 << 18, 5), (256, 0, 2)])
-@pytest.mark.parametrize("dup", [0.0, 0.5, 0.95])
-def test_fullsort_dedup_matches_twin(card, SC, C, K, dup):
-    """K11 against its twin over the sorted [SC + C, K] keys of a seen
-    table (a live prefix, then invalid rows) and candidates with
-    duplicates and invalid rows: new_cidx over new_count and seen2 over
-    seen_count2 bit for bit, the counts equal."""
+def _k11_inputs(card, SC, C, K, dup, seed, n_seen=None, vals=50):
+    """The sorted [SC + C, K] keys of a seen table (a live prefix, then
+    invalid rows) and candidates with duplicates and invalid rows, and
+    their flags and pre-sort indices."""
     from jaxmc_torch.kernels import ops
-    rng = np.random.default_rng(SC + C + K)
-    n_seen = SC // 3
+    rng = np.random.default_rng(seed)
+    n_seen = SC // 3 if n_seen is None else n_seen
     seen = np.full((SC, K), SENT, np.int32)
-    sv = np.unique(rng.integers(-50, 50, (n_seen, K - 1)).astype(np.int32),
-                   axis=0)
+    sv = np.unique(rng.integers(-vals, vals, (n_seen, K - 1))
+                   .astype(np.int32), axis=0)
     seen[:len(sv), 0] = 0
     seen[:len(sv), 1:] = sv
     cand = np.zeros((C, K), np.int32)
-    cand[:, 1:] = rng.integers(-50, 50, (C, K - 1))
+    cand[:, 1:] = rng.integers(-vals, vals, (C, K - 1))
     take = rng.random(C) < dup
     if len(sv) and take.any():
         cand[take, 1:] = sv[rng.integers(0, len(sv), int(take.sum()))]
@@ -699,15 +736,129 @@ def test_fullsort_dedup_matches_twin(card, SC, C, K, dup):
     skeys = allk[perm].contiguous()
     perm = perm.to(torch.int32)
     sflag = (perm >= SC).to(torch.int32)
+    return skeys, sflag, perm
+
+
+def _k11_call(skeys, sflag, perm, SC, C):
+    """K11 twice on the same inputs against its twin: new_cidx over
+    new_count, seen2 over seen_count2 and the counts bit for bit, both
+    calls bit-identical, 1 launch a call."""
+    from jaxmc_torch.kernels import ops
     ops.reset_launches()
-    nk, sk, ck = ops.fullsort_dedup(skeys, sflag, perm, SC, C)
+    k1 = ops.fullsort_dedup(skeys, sflag, perm, SC, C)
+    k2 = ops.fullsort_dedup(skeys, sflag, perm, SC, C)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["fullsort_dedup"] == 3
+    assert ops.LAUNCHES["fullsort_dedup"] == 2, ops.LAUNCHES
     nt, st, ct = ops.fullsort_dedup_twin(skeys, sflag, perm, SC, C)
-    _eq(ck, ct)
     n_new, n_keep = int(ct[0]), int(ct[1])
-    _eq(nk[:n_new], nt[:n_new])
-    _eq(sk[:n_keep], st[:n_keep])
+    for nk, sk, ck in (k1, k2):
+        _eq(ck, ct)
+        _eq(nk[:n_new], nt[:n_new])
+        _eq(sk[:n_keep], st[:n_keep])
+    _eq(k1[0], k2[0])
+    _eq(k1[1][:n_keep], k2[1][:n_keep])
+
+
+@pytest.mark.parametrize("SC,C,K", [(64, 32, 3), (1 << 16, 40000, 3),
+                                    (1 << 18, 1 << 18, 5), (256, 0, 2)])
+@pytest.mark.parametrize("dup", [0.0, 0.5, 0.95])
+def test_fullsort_dedup_matches_twin(card, SC, C, K, dup):
+    """K11 against its twin over the sorted [SC + C, K] keys of a seen
+    table (a live prefix, then invalid rows) and candidates with
+    duplicates and invalid rows: new_cidx over new_count and seen2 over
+    seen_count2 bit for bit, the counts equal, twice in a row, 1 launch
+    a call."""
+    _k11_call(*_k11_inputs(card, SC, C, K, dup, SC + C + K), SC, C)
+
+
+@pytest.mark.parametrize("K", [2, 3, 4, 5, 6])
+@pytest.mark.parametrize("rows", ["1", "T-1", "T", "T+1", "3T",
+                                  "2^23+1"])
+def test_fullsort_dedup_tile_edges(card, K, rows):
+    """K11 at row counts around its tile T (which depends on K) and N =
+    1, with few distinct keys, so runs of equal keys cross tile
+    boundaries: twice in a row against its twin, 1 launch a call."""
+    from jaxmc_torch.kernels import build
+    T = int(build.library("fullsort").jmc_fullsort_tile_rows(K))
+    N = {"1": 1, "T-1": T - 1, "T": T, "T+1": T + 1, "3T": 3 * T,
+         "2^23+1": 2**23 + 1}[rows]
+    if N == 1:
+        for SC, C in ((1, 0), (0, 1)):
+            _k11_call(*_k11_inputs(card, SC, C, K, 0.5, K, 0), SC, C)
+        return
+    SC = N // 2
+    C = N - SC
+    _k11_call(*_k11_inputs(card, SC, C, K, 0.7, N + K, vals=3), SC, C)
+
+
+@pytest.mark.parametrize("streams", ["one", "two"])
+def test_compactions_from_two_threads(card, streams):
+    """K8 and K11 called from two host threads at once, both on the
+    default stream (as the batch engine's threads launch) or each on a
+    stream of its own: every call equals its twin.  The workspace's lock
+    keeps a call's launches together on one stream; another stream has
+    a workspace of its own."""
+    import threading
+    from jaxmc_torch.kernels import ops
+    SC, C, cap = 1 << 16, 40000, 1 << 19
+    rng = np.random.default_rng(5)
+    masks = [torch.as_tensor(rng.random(1 << 20) < p, device=card)
+             for p in (0.3, 0.7)]
+    k11 = [_k11_inputs(card, SC, C, 3, d, 9 + t)
+           for t, d in enumerate((0.2, 0.8))]
+    want8 = [ops.resident_compact_twin(m, cap) for m in masks]
+    want11 = [ops.fullsort_dedup_twin(*x, SC, C) for x in k11]
+    torch.cuda.synchronize()
+    got, errors = [[], []], []
+
+    def run(t):
+        try:
+            s = torch.cuda.Stream() if streams == "two" \
+                else torch.cuda.default_stream()
+            with torch.cuda.stream(s):
+                for _ in range(40):
+                    got[t].append((
+                        ops.resident_compact(masks[t], cap, site="explore"),
+                        ops.fullsort_dedup(*k11[t], SC, C)))
+            s.synchronize()
+        except Exception as e:     # raised again in the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(t,)) for t in (0, 1)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    torch.cuda.synchronize()
+    if errors:
+        raise errors[0]
+    for t in (0, 1):
+        n_new, n_keep = (int(x) for x in want11[t][2])
+        assert len(got[t]) == 40
+        for (idx, sc), (nc, s2, cn) in got[t]:
+            _eq(idx, want8[t][0])
+            _eq(sc, want8[t][1])
+            _eq(cn, want11[t][2])
+            _eq(nc[:n_new], want11[t][0][:n_new])
+            _eq(s2[:n_keep], want11[t][1][:n_keep])
+
+
+def test_compactions_refuse_graph_capture(card):
+    """A call's epoch is an argument of its launch, so a captured call
+    would replay one epoch: K8 and K11 refuse capture, and launch
+    nothing."""
+    from jaxmc_torch.kernels import ops
+    m = torch.ones(4096, dtype=torch.bool, device=card)
+    skeys, sflag, perm = _k11_inputs(card, 64, 32, 3, 0.5, 1)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        with pytest.raises(RuntimeError, match="CUDA graph"):
+            ops.resident_compact(m, 16, site="explore")
+        with pytest.raises(RuntimeError, match="CUDA graph"):
+            ops.fullsort_dedup(skeys, sflag, perm, 64, 32)
+    assert not any(ops.LAUNCHES.values()), ops.LAUNCHES
 
 
 @pytest.mark.parametrize("spec,cfg,kw", [
