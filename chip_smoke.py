@@ -672,6 +672,10 @@ def phase_kernels(eng, got, tag="3 kernels", suffix=""):
             raise AssertionError("searchsorted yardstick disagrees")
         lib_ms = cuda_time(lambda: torch.searchsorted(sf, qf))
     probes = max(1, math.ceil(math.log2(max(seen_count, 1) + 1)))
+    # the launch's device time alone (the event time also holds the
+    # wrapper's host work when that is the longer)
+    dev_ms = device_ms(lambda: ops.seen_probe(seen, seen_count, skeys),
+                       "seen_probe")
     record("seen_probe", "jaxmc_torch/kernels/csrc/probe.cu",
            "jaxmc/backend/bfs.py:142", _max_abs(list(k), list(t)),
            cuda_time(lambda: ops.seen_probe(seen, seen_count, skeys)),
@@ -681,7 +685,8 @@ def phase_kernels(eng, got, tag="3 kernels", suffix=""):
            # queries; found and lb written
            (seen_count + N) * (K - 1) * 4 + N * 5,
            N * probes * (K - 1) * 2, library_ms=lib_ms,
-           note=f" [N={N} seen_count={seen_count} SC={SC} K={K}]")
+           note=f" [N={N} seen_count={seen_count} SC={SC} K={K}; 1 launch, "
+                f"{_device_note(dev_ms)}]")
 
     # K4 merge_sorted on the sorted keys and their probe; the whole
     # rank_merge (LSD sort + K3 + K4) is timed beside it for reference
@@ -1082,6 +1087,8 @@ def check_por(eng, got, counts, tag="10 por"):
             raise AssertionError("searchsorted yardstick disagrees")
         lib_ms = cuda_time(lambda: torch.searchsorted(sf, qf))
     probes = max(1, math.ceil(math.log2(max(seen_count, 1) + 1)))
+    dev_ms = device_ms(lambda: ops.seen_probe(seen, seen_count, ckeys,
+                                              site="por"), "seen_probe")
     out = [_row(tag, "seen_probe_por", "jaxmc_torch/kernels/csrc/probe.cu",
                 "jaxmc/backend/bfs.py:199", counts["seen_probe_por"],
                 _max_abs(list(fk), list(ft)),
@@ -1091,7 +1098,8 @@ def check_por(eng, got, counts, tag="10 por"):
                                                       ckeys), reps=3),
                 (seen_count + C) * (K - 1) * 4 + C * 5,
                 C * probes * (K - 1) * 2, library_ms=lib_ms,
-                note=f" [C={C} seen_count={seen_count} K={K}, unsorted]")]
+                note=f" [C={C} seen_count={seen_count} K={K}, unsorted; "
+                     f"1 launch, {_device_note(dev_ms)}]")]
     found = fk[0]
     k = ops.por_mask(found, cvalid, ia, safe, A, FC)
     t = ops.por_mask_twin(found, cvalid, ia, safe, A, FC)
@@ -1140,30 +1148,37 @@ def phase_por_verdicts():
 # ---------------------------------------------------------------------------
 
 def host_seen_engine(spec, cfg, capture=None, **kw):
-    """A host-seen TorchExplorer; with `capture` (a dict) it keeps the
-    K7 inputs of the chunk with the most valid candidates (this reads
-    each chunk's count back, so only the twin run captures)."""
+    """A host-seen TorchExplorer that counts its chunk steps
+    (`chunk_steps`); with `capture` (a dict) it keeps the K7 inputs of
+    the chunk with the most valid candidates (this reads each chunk's
+    count back, so only the twin run captures)."""
     from jaxmc_torch.backend.bfs import TorchExplorer
     from jaxmc_torch.session import load_model
 
-    class Capture(TorchExplorer):
+    class Counting(TorchExplorer):
+        chunk_steps = 0
+
+        def _hstep(self, frontier_p, fcount):
+            self.chunk_steps += 1
+            return super()._hstep(frontier_p, fcount)
+
         def _epilogue(self, en, aok, ov, fcount, keys, cand, pack_ovf,
                       inv_ok, explore):
-            CH = en.shape[1]
-            fv = torch.arange(CH, device=en.device) < fcount
-            n = int((en & fv[None, :]).sum())
-            if n > capture.get("n", -1):
-                capture.update(n=n, args=tuple(
-                    x.clone() if isinstance(x, torch.Tensor) else x
-                    for x in (en, aok, ov, fcount, keys, cand, pack_ovf,
-                              inv_ok, explore)))
+            if capture is not None:
+                CH = en.shape[1]
+                fv = torch.arange(CH, device=en.device) < fcount
+                n = int((en & fv[None, :]).sum())
+                if n > capture.get("n", -1):
+                    capture.update(n=n, args=tuple(
+                        x.clone() if isinstance(x, torch.Tensor) else x
+                        for x in (en, aok, ov, fcount, keys, cand, pack_ovf,
+                                  inv_ok, explore)))
             return super()._epilogue(en, aok, ov, fcount, keys, cand,
                                      pack_ovf, inv_ok, explore)
 
-    cls = Capture if capture is not None else TorchExplorer
-    return cls(load_model(os.path.join(SPECS, spec), cfg), device=DEVICE,
-               host_seen=True, chunk=CHUNK_HS, store_trace=False,
-               progress_every=1e9, **kw)
+    return Counting(load_model(os.path.join(SPECS, spec), cfg),
+                    device=DEVICE, host_seen=True, chunk=CHUNK_HS,
+                    store_trace=False, progress_every=1e9, **kw)
 
 
 def phase_host_seen(tag, spec, cfg, pins, por_pins=None, **kw):
@@ -1208,6 +1223,14 @@ def phase_host_seen(tag, spec, cfg, pins, por_pins=None, **kw):
             if missing or extra:
                 raise AssertionError(f"{tag}: kernels not launched "
                                      f"{missing}, launched {extra}")
+            # K7 is one launch a chunk step
+            if counts["hstep_epilogue"] != eng.chunk_steps:
+                raise AssertionError(
+                    f"{tag}: hstep_epilogue launched "
+                    f"{counts['hstep_epilogue']} times in "
+                    f"{eng.chunk_steps} chunk steps")
+            log(f"[{tag}] hstep_epilogue: {counts['hstep_epilogue']} "
+                f"launches, one a chunk step")
             out["counts"] = counts
     return out["counts"], captured
 
@@ -1240,16 +1263,10 @@ def check_hstep(captured, launches, tag="11 host seen"):
             _max_abs(lib[0][:, 1:], k["fps"][:nv]):
         raise AssertionError("nonzero + index_select yardstick disagrees")
     preds = 2
-    # the three launches' device time alone, from the profiler: the
-    # event time above also holds the wrapper's host work when that is
-    # the longer of the two
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            ops.hstep_epilogue(*args)
-        torch.cuda.synchronize()
-    dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if "hstep_" in e.key and "kernel" in e.key) / 10
+    # the launch's device time alone, from the profiler: the event time
+    # also holds the wrapper's host work when that is the longer of the
+    # two
+    dev_ms = device_ms(lambda: ops.hstep_epilogue(*args), "hstep_kernel")
     return _row(
         tag, "hstep_epilogue@4p", "jaxmc_torch/kernels/csrc/hstep.cu",
         "jaxmc/backend/bfs.py:1938", launches["hstep_epilogue"], err,
@@ -1262,7 +1279,7 @@ def check_hstep(captured, launches, tag="11 host seen"):
         C * 8 + nv * (5 + PW + preds),
         library_ms=cuda_time(library),
         note=f" [A={A} CH={CH} fcount={fcount} valid={nv} PW={PW}; "
-             f"3 launches, device time {dev_us / 1e3:.4f} ms]")
+             f"1 launch, {_device_note(dev_ms)}]")
 
 
 def phase_hybrid():

@@ -44,7 +44,7 @@ _I = ctypes.c_int
 ARGTYPES = {
     "jmc_unpack_rows": [_P] * 8 + [_I64, _I, _I, _P],
     "jmc_keys_of": [_P] * 14 + [_I64, _I, _I, _I, _I, _I, _P],
-    "jmc_seen_probe": [_P] * 4 + [_I64, _I64, _I, _P],
+    "jmc_seen_probe": [_P] * 4 + [_I64, _I64, _I, _I, _P],
     "jmc_merge_flags": [_P] * 5 + [_I64, _I64, _I, _P],
     "jmc_merge_compact": [_P] * 6 + [_I64, _I64, _P],
     "jmc_merge_scatter": [_P] * 7 + [_I64, _I64, _I64, _I, _P],
@@ -52,10 +52,9 @@ ARGTYPES = {
     "jmc_canon_rows": [_P] * 3 + [_I, _P, _P, _I64, _I, _P],
     "jmc_por_max_arms": [],
     "jmc_por_mask": [_P] * 6 + [_I, _I64, _I, _P],
-    "jmc_hstep_threads": [],
-    "jmc_hstep_count": [_P] * 8 + [_I, _I, _I, _P],
-    "jmc_hstep_scan": [_P] * 7 + [_I, _I, _P],
-    "jmc_hstep_scatter": [_P] * 11 + [_I, _I, _I, _I, _P],
+    "jmc_hstep_tile": [],
+    "jmc_hstep_workspace_bytes": [_I],
+    "jmc_hstep_epilogue": [_P] * 16 + [_I] * 8 + [_P],
     "jmc_res_tile": [],
     "jmc_res_workspace_bytes": [_I],
     "jmc_res_compact": [_P] * 6 + [_I] * 7 + [_P],
@@ -80,7 +79,8 @@ ARGTYPES = {
     "jmc_mesh_scalars": [_P] * 2 + [_I, _I, _I, _I, _P],
 }
 # return types other than the cudaError_t (an int) of a launch
-RESTYPE = {"jmc_canon_threads": _I64, "jmc_res_workspace_bytes": _I64,
+RESTYPE = {"jmc_canon_threads": _I64, "jmc_hstep_workspace_bytes": _I64,
+           "jmc_res_workspace_bytes": _I64,
            "jmc_fullsort_workspace_bytes": _I64}
 ENTRY = {"unpack": ["jmc_unpack_rows"], "keys": ["jmc_keys_of"],
          "probe": ["jmc_seen_probe"],
@@ -88,8 +88,8 @@ ENTRY = {"unpack": ["jmc_unpack_rows"], "keys": ["jmc_keys_of"],
                    "jmc_merge_scatter"],
          "canon": ["jmc_canon_threads", "jmc_canon_rows"],
          "por": ["jmc_por_max_arms", "jmc_por_mask"],
-         "hstep": ["jmc_hstep_threads", "jmc_hstep_count", "jmc_hstep_scan",
-                   "jmc_hstep_scatter"],
+         "hstep": ["jmc_hstep_tile", "jmc_hstep_workspace_bytes",
+                   "jmc_hstep_epilogue"],
          "resident": ["jmc_res_tile", "jmc_res_workspace_bytes",
                       "jmc_res_compact", "jmc_res_fold_copy",
                       "jmc_res_fold_scalar"],

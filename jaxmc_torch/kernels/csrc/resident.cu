@@ -95,13 +95,18 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int32_t kNone = 0x7FFFFFFF;
-// K8: entries a thread (one 16-byte load of the mask), threads a tile
-// and a tile (chosen by a sweep on the card, PERF.md)
-constexpr int kItems = 16;
-constexpr int kTileThreads = 256;
-constexpr int kTileWarps = kTileThreads / 32;
-constexpr int kTile = kTileThreads * kItems;
+// K8's tile (lookback.cuh): 16 entries a thread, 256 threads, 4,096
+// entries
+using jmc_lb::Entries;
+using jmc_lb::block_scan;
+using jmc_lb::kNone;
+using jmc_lb::kTile;
+using jmc_lb::kTileThreads;
+using jmc_lb::kTileWarps;
+using jmc_lb::low_bits;
+using jmc_lb::stage;
+using jmc_lb::tile_entries;
+using jmc_lb::warp_max;
 
 // the reference's ST_* codes (jaxmc/backend/bfs.py:58-68)
 constexpr int64_t kContinue = 0;
@@ -110,103 +115,6 @@ constexpr int64_t kAssert = 4;
 constexpr int64_t kOvfAcc = 8;
 constexpr int64_t kOvfVc = 9;
 constexpr int64_t kOvfLanes = 10;
-
-__device__ __forceinline__ int32_t warp_max(int32_t v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = max(v, __shfl_down_sync(0xFFFFFFFFu, v, o));
-  return v;
-}
-
-// bit k set when byte k of p[0..n) is nonzero: one 16-byte load when the
-// thread's entries are whole and aligned
-__device__ __forceinline__ uint32_t load_bits(const bool* p, int n) {
-  uint32_t b = 0;
-  if (n == kItems && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
-#pragma unroll
-    for (int q = 0; q < kItems / 16; ++q) {
-      const uint4 v = reinterpret_cast<const uint4*>(p)[q];
-      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int k = 0; k < 16; ++k)
-        if ((w[k >> 2] >> (8 * (k & 3))) & 0xFFu) b |= 1u << (16 * q + k);
-    }
-    return b;
-  }
-  for (int k = 0; k < n; ++k)
-    if (p[k]) b |= 1u << k;
-  return b;
-}
-
-__device__ __forceinline__ uint32_t low_bits(int n) {
-  return n >= 32 ? 0xFFFFFFFFu : (1u << n) - 1u;
-}
-
-// bit k set when slot (i0 + k) % ch is below flim: one modulo a thread,
-// then the slot walks
-__device__ __forceinline__ uint32_t slot_bits(int64_t i0, int n, int32_t ch,
-                                              int32_t flim) {
-  if (flim >= ch) return low_bits(n);
-  int32_t f = static_cast<int32_t>(i0 % ch);
-  uint32_t b = 0;
-  for (int k = 0; k < n; ++k) {
-    if (f < flim) b |= 1u << k;
-    if (++f == ch) f = 0;
-  }
-  return b;
-}
-
-// the thread's entries of tile `tile`: its first flat index, their
-// number below C and the bitmap of the set ones
-struct Entries {
-  int64_t i0;
-  int n;
-  uint32_t fv;
-  uint32_t set;
-};
-
-__device__ __forceinline__ Entries tile_entries(const bool* mask, int tile,
-                                                int64_t c, int32_t ch,
-                                                int32_t flim) {
-  Entries e;
-  e.i0 = static_cast<int64_t>(tile) * kTile +
-         static_cast<int64_t>(threadIdx.x) * kItems;
-  const int64_t left = c - e.i0;
-  e.n = left <= 0 ? 0 : (left >= kItems ? kItems : static_cast<int>(left));
-  e.fv = e.n ? slot_bits(e.i0, e.n, ch, flim) : 0u;
-  e.set = e.fv ? load_bits(mask + e.i0, e.n) & e.fv : 0u;
-  return e;
-}
-
-// exclusive block scan of one count a thread (s_warp: kTileWarps words, free
-// on entry); *total is the block's sum
-__device__ __forceinline__ int block_scan(int v, int* s_warp, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(jmc_lb::kFull, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) s_warp[warp] = x;
-  __syncthreads();
-  int before = 0, sum = 0;
-  for (int w = 0; w < kTileWarps; ++w) {
-    const int s = s_warp[w];
-    if (w < warp) before += s;
-    sum += s;
-  }
-  *total = sum;
-  return before + x - v;
-}
-
-// stage the flat indices of the bits of b at s_idx[r], r from rank
-__device__ __forceinline__ void stage(int32_t* s_idx, int rank, uint32_t b,
-                                      int64_t i0) {
-  while (b) {
-    const int k = __ffs(b) - 1;
-    b &= b - 1;
-    s_idx[rank++] = static_cast<int32_t>(i0 + k);
-  }
-}
 
 __global__ void __launch_bounds__(kTileThreads) res_compact_pass_kernel(
     const bool* __restrict__ mask, const bool* __restrict__ aok,
@@ -227,24 +135,7 @@ __global__ void __launch_bounds__(kTileThreads) res_compact_pass_kernel(
   // the chunk site's reductions, each as a maximum with identity 0
   int32_t r_ov = 0, r_ab = 0, r_dead = 0;
   if (aok != nullptr) {
-    if (e.fv) {
-      const uint32_t bad = e.fv & ~load_bits(aok + e.i0, e.n);
-      if (bad) r_ab = kNone - static_cast<int32_t>(e.i0 + __ffs(bad) - 1);
-      const int32_t* o = ov + e.i0;
-      if (e.n == kItems && (reinterpret_cast<uintptr_t>(o) & 15) == 0) {
-#pragma unroll
-        for (int q = 0; q < kItems / 4; ++q) {
-          const int4 v = reinterpret_cast<const int4*>(o)[q];
-          const int32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-          for (int u = 0; u < 4; ++u)
-            if ((e.fv >> (4 * q + u)) & 1u) r_ov = max(r_ov, w[u]);
-        }
-      } else {
-        for (int k = 0; k < e.n; ++k)
-          if ((e.fv >> k) & 1u) r_ov = max(r_ov, o[k]);
-      }
-    }
+    jmc_lb::verdict_partials(e, aok, ov, &r_ov, &r_ab);
     // dead slots: this tile's share of [0, flim), a slot dead when no
     // row of the grid sets it; f rises in a thread, so its first is its
     // least

@@ -104,6 +104,8 @@ LAUNCHES: Dict[str, int] = {"unpack_rows": 0, "keys_of": 0,
                             "gen_pred": 0, "gen_value": 0}
 # arms the device POR filter takes (por.cu kMaxWords * 64)
 POR_MAX_ARMS = 1024
+# a kernel library's tile size, read from it once
+_TILES: Dict[str, int] = {}
 
 
 def reset_launches() -> None:
@@ -200,6 +202,18 @@ def _launch(name: str, rc: int, n: int = 1) -> None:
 
 def _ptr(x: torch.Tensor):
     return ctypes.c_void_p(x.data_ptr())
+
+
+def _ok(x, dtype, ndim: int) -> bool:
+    """What _check demands, as one test (the wrappers whose host work
+    is most of a call run _check only when this fails, for its error)."""
+    return isinstance(x, torch.Tensor) and x.dtype is dtype and \
+        x.dim() == ndim and x.is_contiguous()
+
+
+def _raw_stream(index: int) -> int:
+    """The current stream of card `index`, as the int a launch takes."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def _stream():
@@ -396,30 +410,42 @@ def seen_probe_twin(seen: torch.Tensor, seen_count, keys: torch.Tensor):
 
 def seen_probe(seen: torch.Tensor, seen_count: int, keys: torch.Tensor,
                site: str = ""):
-    """K3: (found [N] bool, lb [N] int32); seen_count a host int.  A
-    launch counts under seen_probe, or seen_probe_<site>."""
-    _check(seen, "seen_probe.seen", 2)
-    _check(keys, "seen_probe.keys", 2)
-    if seen.shape[1] != keys.shape[1]:
-        raise ValueError("seen_probe: key widths differ")
-    if not 0 <= int(seen_count) <= seen.shape[0]:
-        raise ValueError(f"seen_probe: count {seen_count} outside "
-                         f"[0, {seen.shape[0]}]")
-    if keys.device.type == "cpu":
-        return seen_probe_twin(seen, seen_count, keys)
-    _same_device("seen_probe", seen, keys)
-    from . import build
-    lib = build.library("probe")
+    """K3: (found [N] bool, lb [N] int32); seen_count a host int.  One
+    launch a call, counted under seen_probe, or seen_probe_<site>;
+    found and lb are views of one allocation of N * 5 bytes.  The rank
+    sites (no site) probe sorted keys and take the tiled search; a site
+    (the POR sites probe keys in candidate order) takes the search of
+    one thread a query.  Either is right for keys in any order.  The
+    checks run once, on a path kept short: at a level's sizes the
+    host's work is most of a call."""
+    if not (_ok(seen, torch.int32, 2) and _ok(keys, torch.int32, 2)):
+        _check(seen, "seen_probe.seen", 2)
+        _check(keys, "seen_probe.keys", 2)
+    SC, K = seen.shape
     N = keys.shape[0]
-    found = torch.empty((N,), dtype=torch.bool, device=keys.device)
-    lb = torch.empty((N,), dtype=torch.int32, device=keys.device)
-    if N == 0:
-        return found, lb
-    rc = lib.jmc_seen_probe(
-        _ptr(seen), _ptr(keys), _ptr(found), _ptr(lb),
-        ctypes.c_int64(int(seen_count)), ctypes.c_int64(N),
-        ctypes.c_int(keys.shape[1]), _stream())
-    _launch("seen_probe_" + site if site else "seen_probe", rc)
+    count = int(seen_count)
+    if keys.shape[1] != K:
+        raise ValueError("seen_probe: key widths differ")
+    if not 0 <= count <= SC:
+        raise ValueError(f"seen_probe: count {seen_count} outside "
+                         f"[0, {SC}]")
+    if keys.is_cpu:
+        return seen_probe_twin(seen, count, keys)
+    dev = keys.get_device()
+    if seen.get_device() != dev:
+        _same_device("seen_probe", seen, keys)
+    if SC >= 2**31:
+        raise ValueError(f"seen_probe: {SC} seen rows, the kernel's "
+                         f"indices are int32")
+    lb, found = torch.empty((N * 5,), dtype=torch.uint8,
+                            device=keys.device).split_with_sizes([N * 4, N])
+    lb, found = lb.view(torch.int32), found.view(torch.bool)
+    if N:
+        from . import build
+        rc = build.library("probe").jmc_seen_probe(
+            seen.data_ptr(), keys.data_ptr(), found.data_ptr(),
+            lb.data_ptr(), count, N, K, 0 if site else 1, _raw_stream(dev))
+        _launch("seen_probe_" + site if site else "seen_probe", rc)
     return found, lb
 
 
@@ -726,14 +752,22 @@ def hstep_epilogue(en: torch.Tensor, aok: torch.Tensor, ov: torch.Tensor,
                    fcount: int, keys: torch.Tensor, cand: torch.Tensor,
                    pack_ovf, ov_pack: int, inv_ok: torch.Tensor,
                    explore: torch.Tensor) -> dict:
-    """K7: hstep_epilogue_twin's function in three launches (block
-    counts and reductions, one-block scan, scatter); pack_ovf is K2's
-    0-d bool tensor.  Nothing is read back to the host here."""
-    _check(en, "hstep_epilogue.en", 2, torch.bool)
-    _check(aok, "hstep_epilogue.aok", 2, torch.bool)
-    _check(ov, "hstep_epilogue.ov", 2)
-    _check(keys, "hstep_epilogue.keys", 2)
-    _check(cand, "hstep_epilogue.cand", 2)
+    """K7: hstep_epilogue_twin's function in one launch (a single pass
+    with decoupled look-back); pack_ovf is K2's 0-d bool tensor on the
+    card (a host bool is refused there).  The seven outputs are views of
+    one allocation, the scratch is the cached workspace, the checks run
+    once on a path kept short.  Nothing is read back to the host here."""
+    B, I32 = torch.bool, torch.int32
+    if not (_ok(en, B, 2) and _ok(aok, B, 2) and _ok(ov, I32, 2)
+            and _ok(keys, I32, 2) and _ok(cand, I32, 2)
+            and _ok(inv_ok, B, 1) and _ok(explore, B, 1)):
+        _check(en, "hstep_epilogue.en", 2, B)
+        _check(aok, "hstep_epilogue.aok", 2, B)
+        _check(ov, "hstep_epilogue.ov", 2)
+        _check(keys, "hstep_epilogue.keys", 2)
+        _check(cand, "hstep_epilogue.cand", 2)
+        _check(inv_ok, "hstep_epilogue.inv_ok", 1, B)
+        _check(explore, "hstep_epilogue.explore", 1, B)
     A, CH = en.shape
     C = A * CH
     if aok.shape != en.shape or ov.shape != en.shape or \
@@ -741,59 +775,65 @@ def hstep_epilogue(en: torch.Tensor, aok: torch.Tensor, ov: torch.Tensor,
         raise ValueError(f"hstep_epilogue: en {tuple(en.shape)}, aok "
                          f"{tuple(aok.shape)}, ov {tuple(ov.shape)}, keys "
                          f"{tuple(keys.shape)}, cand {tuple(cand.shape)}")
-    for nm, x in (("inv_ok", inv_ok), ("explore", explore)):
-        _check(x, "hstep_epilogue." + nm, 1, torch.bool)
-        if x.shape[0] != C:
-            raise ValueError(f"hstep_epilogue: {nm} {tuple(x.shape)} "
-                             f"for {C} candidates")
-    if not 0 <= int(fcount) <= CH:
+    if inv_ok.shape[0] != C or explore.shape[0] != C:
+        raise ValueError(f"hstep_epilogue: inv_ok {tuple(inv_ok.shape)}, "
+                         f"explore {tuple(explore.shape)} for {C} "
+                         f"candidates")
+    fcount = int(fcount)
+    if not 0 <= fcount <= CH:
         raise ValueError(f"hstep_epilogue: fcount {fcount} outside "
                          f"[0, {CH}]")
     if max(C, CH) >= 2**31 - 256:
         raise ValueError(f"hstep_epilogue: {C} candidates, the kernel's "
                          f"indices are int32")
-    if en.device.type == "cpu":
+    if en.is_cpu:
         return hstep_epilogue_twin(en, aok, ov, fcount, keys, cand,
                                    pack_ovf, ov_pack, inv_ok, explore)
-    if not isinstance(pack_ovf, torch.Tensor):
-        pack_ovf = torch.tensor(bool(pack_ovf), device=en.device)
-    pack_ovf = pack_ovf.reshape(()).to(torch.bool).contiguous()
-    _same_device("hstep_epilogue", en, aok, ov, keys, cand, pack_ovf,
-                 inv_ok, explore)
+    if not (isinstance(pack_ovf, torch.Tensor) and pack_ovf.dim() == 0
+            and pack_ovf.dtype is B):
+        raise TypeError("hstep_epilogue: pack_ovf must be K2's 0-d bool "
+                        "tensor on the card, got "
+                        f"{getattr(pack_ovf, 'shape', type(pack_ovf))}")
+    d = en.get_device()
+    if not (aok.get_device() == ov.get_device() == keys.get_device()
+            == cand.get_device() == pack_ovf.get_device()
+            == inv_ok.get_device() == explore.get_device() == d):
+        _same_device("hstep_epilogue", en, aok, ov, keys, cand, pack_ovf,
+                     inv_ok, explore)
     from . import build
     lib = build.library("hstep")
     dev = en.device
     PW = cand.shape[1]
-    threads = int(lib.jmc_hstep_threads())
-    nb = max(1, -(-max(C, CH) // threads))
-    part = torch.empty((5, nb), dtype=torch.int32, device=dev)
-    scalars = torch.empty((6,), dtype=torch.int64, device=dev)
-    dead = torch.empty((CH,), dtype=torch.bool, device=dev)
-    idx = torch.empty((C,), dtype=torch.int32, device=dev)
-    fps = torch.empty((C, 4), dtype=torch.int32, device=dev)
-    rows = torch.empty((C, PW), dtype=torch.int32, device=dev)
-    inv_out = torch.empty((C,), dtype=torch.bool, device=dev)
-    exp_out = torch.empty((C,), dtype=torch.bool, device=dev)
-    rc = lib.jmc_hstep_count(
-        _ptr(en), _ptr(aok), _ptr(ov), _ptr(dead), _ptr(part[0]),
-        _ptr(part[1]), _ptr(part[2]), _ptr(part[3]), ctypes.c_int(A),
-        ctypes.c_int(CH), ctypes.c_int(int(fcount)), _stream())
+    stream = _Workspace.stream_for("hstep_epilogue", dev)
+    tile = _TILES.get("hstep")
+    if tile is None:
+        tile = _TILES["hstep"] = int(lib.jmc_hstep_tile())
+    tiles = max(1, -(-max(C, CH) // tile))
+    # int64 scalars first, then the int32 outputs, then the bools, each
+    # part a whole number of int64 words
+    n32, nb = C * (5 + PW), CH + 2 * C
+    w32, wb = -(-n32 // 2), -(-nb // 8)
+    scalars, t32, tb = torch.empty(
+        (6 + w32 + wb,), dtype=torch.int64, device=dev).split_with_sizes(
+            [6, w32, wb])
+    idx, fps, rows, _ = t32.view(I32).split_with_sizes(
+        [C, 4 * C, PW * C, 2 * w32 - n32])
+    dead, inv_out, exp_out, _ = tb.view(B).split_with_sizes(
+        [CH, C, C, 8 * wb - nb])
+    with _K7_WS.lock:
+        ws, ws_tiles, epoch = _K7_WS.take(lib, dev, stream, tiles)
+        rc = lib.jmc_hstep_epilogue(
+            en.data_ptr(), aok.data_ptr(), ov.data_ptr(), keys.data_ptr(),
+            cand.data_ptr(), inv_ok.data_ptr(), explore.data_ptr(),
+            pack_ovf.data_ptr(), scalars.data_ptr(), dead.data_ptr(),
+            idx.data_ptr(), fps.data_ptr(), rows.data_ptr(),
+            inv_out.data_ptr(), exp_out.data_ptr(), ws, A, CH, fcount, PW,
+            int(ov_pack), tiles, ws_tiles, epoch, stream)
+        if rc != 0:
+            _K7_WS.drop(dev, stream)
     _launch("hstep_epilogue", rc)
-    rc = lib.jmc_hstep_scan(
-        _ptr(part[0]), _ptr(part[1]), _ptr(part[2]), _ptr(part[3]),
-        _ptr(pack_ovf), _ptr(part[4]), _ptr(scalars), ctypes.c_int(nb),
-        ctypes.c_int(int(ov_pack)), _stream())
-    _launch("hstep_epilogue", rc)
-    if C:
-        rc = lib.jmc_hstep_scatter(
-            _ptr(en), _ptr(keys), _ptr(cand), _ptr(inv_ok), _ptr(explore),
-            _ptr(part[4]), _ptr(idx), _ptr(fps), _ptr(rows), _ptr(inv_out),
-            _ptr(exp_out),
-            ctypes.c_int(A), ctypes.c_int(CH), ctypes.c_int(int(fcount)),
-            ctypes.c_int(PW), _stream())
-        _launch("hstep_epilogue", rc)
-    return dict(scalars=scalars, dead=dead, idx=idx, fps=fps, rows=rows,
-                inv_ok=inv_out, explore=exp_out)
+    return dict(scalars=scalars, dead=dead, idx=idx, fps=fps.view(C, 4),
+                rows=rows.view(C, PW), inv_ok=inv_out, explore=exp_out)
 
 
 # ---------------------------------------------------------------------------
@@ -856,19 +896,20 @@ def resident_compact_twin(mask: torch.Tensor, cap: int, flim=None,
 
 
 class _Workspace:
-    """The scratch of a single-pass compaction (K8, K11), cached across
-    calls for each (device, stream): the tiles' status words, their side
-    arrays and the ticket counter, zeros when made.  Each call takes the
-    next epoch (1 .. 2**30 - 1), which tags the status words it
-    publishes, so a word of an earlier call reads as unpublished and
-    nothing is cleared between calls; the kernels leave the ticket (and
-    K8's reductions) at 0.  A workspace is safe while its calls run one
-    after another: a call holds `lock` from `take` until its launches
-    are enqueued, so calls from several threads on one stream do not
-    interleave their kernels, and another stream gets a workspace of its
-    own.  Under CUDA graph capture the epoch would be a fixed argument
-    of every replay, so the wrappers refuse it (`stream_for`).  A failed
-    launch drops the workspace."""
+    """The scratch of a single-pass compaction (K7, K8, K11), cached
+    across calls for each (device, stream): the tiles' status words,
+    their side arrays and the ticket counter, zeros when made.  Each
+    call takes the next epoch (1 .. 2**30 - 1), which tags the status
+    words it publishes, so a word of an earlier call reads as
+    unpublished and nothing is cleared between calls; the kernels leave
+    the ticket (and K7's and K8's reductions, K7's done-count) at 0.  A
+    workspace is safe while its calls run one after another: a call
+    holds `lock` from `take` until its launches are enqueued, so calls
+    from several threads on one stream do not interleave their kernels,
+    and another stream gets a workspace of its own.  Under CUDA graph
+    capture the epoch would be a fixed argument of every replay, so the
+    wrappers refuse it (`stream_for`).  A failed launch drops the
+    workspace."""
 
     EPOCHS = 2**30
 
@@ -903,9 +944,11 @@ class _Workspace:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError(f"{name}: not capturable in a CUDA graph "
                                f"(each call takes a new epoch)")
-        return torch.cuda.current_stream(dev).cuda_stream
+        return _raw_stream(dev.index if dev.index is not None
+                           else torch.cuda.current_device())
 
 
+_K7_WS = _Workspace("jmc_hstep_workspace_bytes")
 _K8_WS = _Workspace("jmc_res_workspace_bytes")
 _K11_WS = _Workspace("jmc_fullsort_workspace_bytes")
 

@@ -22,83 +22,11 @@ import torch
 from jax import lax
 
 from jaxmc_torch.kernels import ops
+from lookback_model import (AGGREGATE, INCLUSIVE, INVALID, Workspace,
+                            look_back, run_tiles, state_of, word)
 
 SENT = 2**31 - 1
 NONE = 0x7FFFFFFF
-WARP = 32
-INVALID, AGGREGATE, INCLUSIVE = 0, 1, 2
-
-
-def word(epoch, state, payload):
-    return ((epoch << 2 | state) << 32) | payload
-
-
-def state_of(w, epoch):
-    hi = w >> 32
-    return hi & 3 if hi >> 2 == epoch else INVALID
-
-
-class Workspace:
-    """The status words and the epoch counter one device keeps."""
-
-    def __init__(self):
-        self.status = {}        # name -> list of words (grows, never reset)
-        self.epoch = 0
-
-    def words(self, name, tiles):
-        w = self.status.setdefault(name, [])
-        w.extend([0] * (tiles - len(w)))
-        return w
-
-    def next_epoch(self):
-        self.epoch += 1
-        return self.epoch
-
-
-def look_back(status, tile, epoch, agg):
-    """lookback.cuh look_back as a generator: lane l of the warp reads
-    tile end - 1 - l; yields while a word it needs is unpublished;
-    returns the exclusive prefix."""
-    if tile == 0:
-        status[0] = word(epoch, INCLUSIVE, agg)
-        return 0
-    status[tile] = word(epoch, AGGREGATE, agg)
-    excl, end = 0, tile
-    while True:
-        sums, inclusive = [], []
-        for lane in range(WARP):
-            p = end - 1 - lane
-            if p < 0:
-                w = word(epoch, INCLUSIVE, 0)
-            else:
-                while state_of(status[p], epoch) == INVALID:
-                    yield
-                w = status[p]
-            sums.append(w & 0xFFFFFFFF)
-            inclusive.append(state_of(w, epoch) == INCLUSIVE)
-        if any(inclusive):
-            excl += sum(sums[:inclusive.index(True) + 1])
-            break
-        excl += sum(sums)
-        end -= WARP
-    status[tile] = word(epoch, INCLUSIVE, excl + agg)
-    return excl
-
-
-def run_tiles(ntiles, body, rng):
-    """Start tiles in ticket order at random moments and advance the
-    started ones in a random interleaving until all finish."""
-    live, started = [], 0
-    while started < ntiles or live:
-        if started < ntiles and (not live or rng.random() < 0.3):
-            live.append(body(started))
-            started += 1
-            continue
-        g = live[rng.integers(len(live))]
-        try:
-            next(g)
-        except StopIteration:
-            live.remove(g)
 
 
 def k8_model(mask, cap, flim, aok, ov, T, ws, rng):

@@ -169,6 +169,79 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError):
         ops.rank_merge(seen, 65, keys)
 
+def _probe_case(K, kind, device, seed=7):
+    """K3's inputs at its two sites: sorted rank-merge blocks (an
+    invalid SENTINEL tail; `straddle` gives the invalid rows data words
+    that restart below the valid ones, as a POR block's do), unsorted
+    candidate-order keys, and sorted keys spread over a seen table far
+    wider than a tile's window budget."""
+    from jaxmc_torch.kernels import ops
+    rng = np.random.default_rng(seed + K)
+    wide = kind == "wide"
+    sc, N = (300000, 20000) if wide else (150000, 655360 + 77)
+    pool = np.unique(rng.integers(-2**31, 2**31, (sc, K - 1)), axis=0)
+    sc = len(pool)
+    seen = np.full((sc + 1000, K), SENT, np.int32)
+    seen[:sc, 0] = 0
+    seen[:sc, 1:] = pool
+    keys = np.zeros((N, K), np.int64)
+    keys[:, 1:] = rng.integers(-2**31, 2**31, (N, K - 1))
+    pick = rng.random(N) < 0.4
+    keys[pick, 1:] = pool[rng.integers(0, sc, pick.sum())]
+    dup = rng.random(N) < 0.2
+    keys[dup] = keys[rng.integers(0, N, dup.sum())]
+    inval = rng.random(N) < 0.3
+    keys[inval, 0] = 1
+    keys[inval, 1:] = rng.integers(-50, 50, (inval.sum(), K - 1)) \
+        if kind == "straddle" else SENT
+    keys = torch.as_tensor(keys.astype(np.int32), device=device)
+    if kind != "unsorted":
+        keys = keys[ops.lsd_sort(keys)].contiguous()
+    return torch.as_tensor(seen, device=device), sc, keys
+
+
+@pytest.mark.parametrize("K", [3, 5, 6, 11])
+@pytest.mark.parametrize("kind", ["sorted", "straddle", "unsorted", "wide"])
+@pytest.mark.parametrize("site", ["", "por"])
+def test_seen_probe_tiles_match_twin(card, K, kind, site):
+    """K3 at both sites on sorted blocks, a tile straddling the
+    valid/invalid boundary, unsorted keys and windows wider than the
+    budget; count 0 and count == SC; one launch a call."""
+    from jaxmc_torch.kernels import ops
+    seen, sc, keys = _probe_case(K, kind, card)
+    name = "seen_probe_" + site if site else "seen_probe"
+    for count in (sc, 0, seen.shape[0]):
+        ops.reset_launches()
+        f, lb = ops.seen_probe(seen, count, keys, site=site)
+        assert ops.LAUNCHES[name] == 1 and sum(ops.LAUNCHES.values()) == 1
+        ft, lbt = ops.seen_probe_twin(seen, count, keys)
+        torch.cuda.synchronize()
+        _eq(f, ft)
+        _eq(lb, lbt)
+
+
+def test_seen_probe_replays_in_a_cuda_graph(card):
+    """K3 keeps no state between calls, so a captured call replays to
+    the twin's result on new inputs copied into its buffers."""
+    from jaxmc_torch.kernels import ops
+    seen, sc, keys = _probe_case(3, "sorted", card)
+    seen2, sc2, keys2 = _probe_case(3, "sorted", card, seed=8)
+    assert seen.shape == seen2.shape and keys.shape == keys2.shape
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        ops.seen_probe(seen, sc, keys)      # built and warm outside
+    s.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        f, lb = ops.seen_probe(seen, sc, keys)
+    seen.copy_(seen2)
+    keys.copy_(keys2)
+    g.replay()
+    torch.cuda.synchronize()
+    ft, lbt = ops.seen_probe_twin(seen, sc, keys)
+    _eq(f, ft)
+    _eq(lb, lbt)
+
 
 @pytest.mark.parametrize("seen_mode", ["auto", "fingerprint"])
 def test_transfer_scaled_on_the_card(card, seen_mode):
@@ -334,6 +407,99 @@ def test_hstep_epilogue_matches_twin(card, A, CH, p):
         nv = int(t["scalars"][0])
         for name in ("idx", "fps", "rows", "inv_ok", "explore"):
             _eq(k[name][:nv], t[name][:nv])
+
+def _k7_args(card, A=13, CH=65536, p=0.4, seed=3, pack_ovf=True):
+    from jaxmc_torch.compile.kernel2 import OV_PACK
+    rng = np.random.default_rng(seed)
+    C = A * CH
+    ov = np.where(rng.random((A, CH)) < 1e-5, rng.integers(1, 3, (A, CH)),
+                  0).astype(np.int32)
+    return [torch.as_tensor(rng.random((A, CH)) < p, device=card),
+            torch.as_tensor(rng.random((A, CH)) > 1e-4, device=card),
+            torch.as_tensor(ov, device=card), CH - CH // 5,
+            torch.as_tensor(rng.integers(-2**31, 2**31, (C, 5))
+                            .astype(np.int32), device=card),
+            torch.as_tensor(rng.integers(-2**31, 2**31, (C, 2))
+                            .astype(np.int32), device=card),
+            torch.tensor(pack_ovf, device=card), OV_PACK,
+            torch.as_tensor(rng.random(C) < 0.9, device=card),
+            torch.as_tensor(rng.random(C) < 0.7, device=card)]
+
+
+def _k7_eq(k, t):
+    _eq(k["scalars"], t["scalars"])
+    _eq(k["dead"], t["dead"])
+    nv = int(t["scalars"][0])
+    for name in ("idx", "fps", "rows", "inv_ok", "explore"):
+        _eq(k[name][:nv], t[name][:nv])
+
+
+def test_hstep_epilogue_one_launch_a_call(card):
+    """K7 counts one launch a call, and calls in a row on one workspace
+    (older epochs' words present, fewer tiles than before) each equal
+    the twin."""
+    from jaxmc_torch.kernels import ops
+    for A, CH, p in ((13, 65536, 0.4), (3, 1000, 1.0), (13, 65536, 0.0),
+                     (1, 64, 0.5), (0, 4096, 0.5)):
+        args = _k7_args(card, A, CH, p)
+        before = ops.LAUNCHES["hstep_epilogue"]
+        k = ops.hstep_epilogue(*args)
+        assert ops.LAUNCHES["hstep_epilogue"] == before + 1
+        torch.cuda.synchronize()
+        _k7_eq(k, ops.hstep_epilogue_twin(*args))
+
+
+def test_hstep_epilogue_from_two_threads(card):
+    """K7 from two host threads on the default stream: the workspace's
+    lock keeps each call's launch whole; every call equals its twin."""
+    import threading
+    from jaxmc_torch.kernels import ops
+    cases = [_k7_args(card, 13, 16384, p, seed=9 + t)
+             for t, p in enumerate((0.3, 0.7))]
+    want = [ops.hstep_epilogue_twin(*a) for a in cases]
+    torch.cuda.synchronize()
+    got, errors = [[], []], []
+
+    def run(t):
+        try:
+            for _ in range(40):
+                got[t].append(ops.hstep_epilogue(*cases[t]))
+        except Exception as e:     # raised again in the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(t,)) for t in (0, 1)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    torch.cuda.synchronize()
+    if errors:
+        raise errors[0]
+    for t in (0, 1):
+        assert len(got[t]) == 40
+        for k in got[t]:
+            _k7_eq(k, want[t])
+
+
+def test_hstep_epilogue_refuses_capture_and_host_flags(card):
+    """K7 takes a new epoch a call, so it refuses CUDA graph capture;
+    K2's pack flag must be its 0-d device tensor (a host bool would be
+    a host-to-device copy a call).  Neither launches anything."""
+    from jaxmc_torch.kernels import ops
+    args = _k7_args(card, 2, 4096)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    for flag in (True, False, np.bool_(True)):
+        bad = list(args)
+        bad[6] = flag
+        with pytest.raises(TypeError, match="pack_ovf"):
+            ops.hstep_epilogue(*bad)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        with pytest.raises(RuntimeError, match="CUDA graph"):
+            ops.hstep_epilogue(*args)
+    assert not any(ops.LAUNCHES.values()), ops.LAUNCHES
+
 
 
 @pytest.mark.parametrize("spec,cfg,kw", [
