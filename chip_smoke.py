@@ -42,8 +42,10 @@ Phases (any failure raises; the exit code is then not 0):
                twins, counts equal to the reference's; K5 canon_rows and
                K2's canonical branch against their twins and timed at the
                widest level; K5 on random rows of the symkinds layout
-               (every container kind of the canonicaliser); K15 against
-               the emitter at the widest frontier (row "gen_expand@sym")
+               (every container kind of the canonicaliser; W 138 takes
+               blocks of 32 rows) and again with blocks of 3 rows (a
+               smaller shared memory budget); K15 against the emitter
+               at the widest frontier (row "gen_expand@sym")
   9 view       viewtoy_scaled at N 512 (fixtures/viewtoy_scaled_big.cfg)
                on kernels and twins, counts equal to the formula's pins;
                K2's view branch against its twin and timed; K16 (the
@@ -114,8 +116,10 @@ Phases (any failure raises; the exit code is then not 0):
                against the solo walls, the dispatches, peak device
                memory; K10 against its twin and the library call at
                the busiest dispatch (row "batch_epilogue@msgstoy3");
-               the batchtoy_{a,b,c,d,bad} cohort on the card equal to
-               the CPU
+               K15 against the emitter at the cohort's largest call
+               (a member table whose members share tiles; row
+               "gen_expand@cohort"); the batchtoy_{a,b,c,d,bad} cohort
+               on the card equal to the CPU
  19 durability transfer_scaled with a checkpoint at every level, killed
                by JAXMC_FAULTS=run_kill:level=5 in a CLI subprocess, then
                resumed on the card and, from its `.host` snapshot, in
@@ -214,6 +218,7 @@ and K4 only the live prefix of the seen table).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -413,18 +418,53 @@ def gen_summary():
 # are no floor, since nvcc folds much of them (K16's range test over a
 # constant 512-member interval runs in a fraction of its graph's count)
 def check_gen_expand(eng, rows, launches, tag, name="gen_expand"):
-    """K15 against its twin (the emitter loop of _expand) on `rows`,
-    bit-exact, timed with L2 written over before each call, beside its
-    bound: the rows read once, en/aok/ov/succ of every instance written
-    once."""
+    """K15 against its twin (the emitter loop of _expand) on `rows`."""
+    return check_gen_call(eng._gen, rows, eng._gen_units(rows.device),
+                          eng._gen_cvals(), launches, tag, name)
+
+
+@contextlib.contextmanager
+def keeping_largest(box):
+    """While on, the K15 and K5 calls the engines make keep their inputs
+    (clones) in `box`, the largest call of each: A * N for K15 ("gen":
+    gm, rows, units, cv), valid rows for K5 ("canon": rows, valid,
+    canon).  The calls themselves run as before."""
     from jaxmc_torch.kernels import ops
-    gm = eng._gen
-    units = eng._gen_units(rows.device)
-    cv = eng._gen_cvals()
+    gen, canon = ops.gen_expand, ops.canon_rows
+
+    def gen2(gm, rows, units, cvals=None):
+        n = units.shape[0] * rows.shape[0]
+        if n > box.get("gen_n", -1):
+            box["gen_n"] = n
+            box["gen"] = dict(gm=gm, rows=rows.clone(), units=units.clone(),
+                              cv=None if cvals is None else cvals.clone())
+        return gen(gm, rows, units, cvals)
+
+    def canon2(rows, valid, c):
+        n = int(valid.sum())
+        if n > box.get("canon_n", -1):
+            box["canon_n"] = n
+            box["canon"] = dict(rows=rows.clone(), valid=valid.clone(),
+                                canon=c)
+        return canon(rows, valid, c)
+    ops.gen_expand, ops.canon_rows = gen2, canon2
+    try:
+        yield box
+    finally:
+        ops.gen_expand, ops.canon_rows = gen, canon
+
+
+def check_gen_call(gm, rows, units, cv, launches, tag, name):
+    """K15 against its twin on one call's inputs, bit-exact, timed with
+    L2 written over before each call, beside its bound: the rows read
+    once, en/aok/ov/succ of every instance written once."""
+    from jaxmc_torch.compile import cgen
+    from jaxmc_torch.kernels import ops
     k = ops.gen_expand(gm, rows, units, cv)
     t = ops.gen_expand_twin(gm, rows, units, cv)
     torch.cuda.synchronize()
-    N, W, A = rows.shape[0], eng.W, units.shape[0]
+    N, W, A = rows.shape[0], gm.W, units.shape[0]
+    T = gm.meta["tile"]
     return _row(tag, name, GEN_SRC, GEN_REPLACES["gen_expand"], launches,
                 _max_abs(list(k), list(t)),
                 cuda_time(lambda: ops.gen_expand(gm, rows, units, cv),
@@ -432,7 +472,10 @@ def check_gen_expand(eng, rows, launches, tag, name="gen_expand"):
                 cuda_time(lambda: ops.gen_expand_twin(gm, rows, units, cv),
                           reps=3, warm=1),
                 N * W * 4 + A * N * (2 + 4 + W * 4), 0,
-                note=f" [N={N} A={A} W={W}; {_gen_note(gm)}]")
+                note=f" [N={N} A={A} W={W}; tile {T} rows, "
+                     f"{ops.gen_groups(A, -(-N // T)) if T else A} "
+                     f"instances a block, {cgen.tile_bytes(W, T)} bytes of "
+                     f"shared memory; {_gen_note(gm)}]")
 
 
 def check_gen_pred_value(eng, got, counts, tag, suffix):
@@ -978,6 +1021,7 @@ def check_canon(eng, got, counts, tag="8 symmetry"):
     t = ops.canon_rows_twin(rows, valid, canon)
     torch.cuda.synchronize()
     prog = canon.program
+    T = ops.canon_geometry(prog)[0]
     o = [int(x) for x in prog[3:11]]
     # per valid row and permutation: the lane copy, each alternative and
     # condition of the program, the compare
@@ -992,7 +1036,7 @@ def check_canon(eng, got, counts, tag="8 symmetry"):
                 # every row read and written, one validity byte each
                 N + 2 * N * W * 4, nv * per_row,
                 note=f" [N={N} valid={nv} W={W} perms={canon.n_perms} "
-                     f"program {len(prog)} words]")]
+                     f"program {len(prog)} words; blocks of {T} rows]")]
     rows, valid = got["keys"]
     N, nv = rows.shape[0], int(valid.sum())
     crows = ops.canon_rows(rows, valid, canon)
@@ -1026,13 +1070,23 @@ def check_canon(eng, got, counts, tag="8 symmetry"):
                       device=DEVICE, dtype=torch.int32)
     r[torch.rand(r.shape, generator=g, device=DEVICE) < 0.05] = 2**31 - 1
     v = torch.rand(r.shape[0], generator=g, device=DEVICE) < 0.9
-    err = _max_abs(ops.canon_rows(r, v, kc), ops.canon_rows_twin(r, v, kc))
-    log(f"[{tag}] canon_rows on the symkinds layout (seq, growset, union, "
-        f"pfcn, kvtable; W={lay.width}, {kc.n_perms} permutations), "
-        f"200,000 random rows: max_abs_err {err}")
-    if err != 0:
-        raise AssertionError("canon_rows differs from its twin on the "
-                             "symkinds layout")
+    want = ops.canon_rows_twin(r, v, kc)
+    keep = ops.CANON_SMEM
+    for budget in (keep, 8192):
+        ops.CANON_SMEM = budget
+        try:
+            T, staged, smem = ops.canon_geometry(kc.program)
+            err = _max_abs(ops.canon_rows(r, v, kc), want)
+        finally:
+            ops.CANON_SMEM = keep
+        log(f"[{tag}] canon_rows on the symkinds layout (seq, growset, "
+            f"union, pfcn, kvtable; W={lay.width}, {kc.n_perms} "
+            f"permutations), 200,000 random rows, blocks of {T} rows, "
+            f"program {'staged' if staged else 'in device memory'}, "
+            f"{smem} bytes of shared memory: max_abs_err {err}")
+        if err != 0:
+            raise AssertionError("canon_rows differs from its twin on the "
+                                 "symkinds layout")
     return out
 
 
@@ -1856,9 +1910,11 @@ def phase_batch(tag="18 batch"):
     from jaxmc_torch.session import load_model
     spec = os.path.join(SPECS, "msgstoy.tla")
     res = {}
+    box = {}
     for kind, twins in (("kernels", False), ("twins", True)):
-        be, members, build, run, counts, peak = _cohort(
-            CFG_BATCH, spec, twins, keep=not twins)
+        with keeping_largest(box if not twins else {}):
+            be, members, build, run, counts, peak = _cohort(
+                CFG_BATCH, spec, twins, keep=not twins)
         disp = be.dispatcher
         res[kind] = [_summary(m.result) + (tuple(m.result.warnings),)
                      for m in members]
@@ -1901,6 +1957,15 @@ def phase_batch(tag="18 batch"):
         f"solo walls {solo_wall:.3f}s (ratio "
         f"{solo_wall / max(cohort_wall, 1e-9):.2f}x, not gated)")
     row = check_batch_epilogue(donor, launches["batch_epilogue"], tag)
+    g = box["gen"]
+    if g["cv"] is None or g["cv"].shape[0] < 2:
+        raise AssertionError(f"{tag}: the cohort's largest K15 call bound "
+                             f"no member table")
+    gen_row = check_gen_call(g["gm"], g["rows"], g["units"], g["cv"],
+                             launches["gen_expand"], tag,
+                             "gen_expand@cohort")
+    log(f"[{tag}] gen_expand@cohort: {g['cv'].shape[0]} members' "
+        f"constants over {g['rows'].shape[0]} rows")
     # batchtoy: a violation in one member, card against CPU
     bt = os.path.join(SPECS, "batchtoy.tla")
     cfgs = [os.path.join(SPECS, f"batchtoy_{v}.cfg")
@@ -1920,7 +1985,7 @@ def phase_batch(tag="18 batch"):
         f"{out[DEVICE] == out['cpu']}")
     if out[DEVICE] != out["cpu"] or bad[4] != "invariant":
         raise AssertionError(f"{tag}: batchtoy cohort differs")
-    return row
+    return [row, gen_row]
 
 
 def check_batch_epilogue(be, launches, tag):
@@ -3378,7 +3443,7 @@ def main() -> int:
     mark(16)
     table.append(phase_props())
     mark(17)
-    table.append(phase_batch())
+    table += phase_batch()
     mark(18)
     phase_durability(counts_4p)
     mark(19)

@@ -15,9 +15,12 @@ accumulates in uint32_t (the low 32 bits of the int64 sum).
 
 One source per engine holds every unit and three kernels:
 
-  jmc_gen_expand  K15  one thread per (instance, row); blockIdx.y names
-                       the instance through units[]; writes en/aok/ov
-                       and succ straight into the [A, N] / [A, N, W]
+  jmc_gen_expand  K15  a block stages a tile of T frontier rows in
+                       shared memory once and runs a group of instances
+                       of units[] over it, one thread a row; each
+                       instance's [T, W] successors are staged and
+                       written as one run (16-byte stores), en and aok
+                       4 bytes at a time, into the [A, N] / [A, N, W]
                        outputs in the engine's instance order
   jmc_gen_pred    K16  one predicate (`which`) over N rows -> ok [N]
   jmc_gen_value   K17  the VIEW over N rows -> [N, VW] int32
@@ -27,9 +30,10 @@ lifted constants are a table cv [M, L], one row per batch member: row
 n of the block reads cv[n / per], per = N / M (M = 1 broadcasts).  The
 same source compiles as plain C++17 (g++), where `__device__` is
 defined away and `jmc_gen_*_host` loop over the rows instead: the CPU
-tests run the very row functions that nvcc compiles.  That host build
-is a test harness, never a path of the port.  The source is
-deterministic: the same model gives the same bytes.
+tests run the very row functions that nvcc compiles, and K15's host
+entry runs the kernel's tile schedule and staging code block by block.
+That host build is a test harness, never a path of the port.  The
+source is deterministic: the same model gives the same bytes.
 """
 
 from __future__ import annotations
@@ -45,6 +49,29 @@ from . import trace as tr
 UNROLL = 32
 # runs of a static data movement above which it reads index tables
 MAX_RUNS = 64
+# K15's tile: the shared memory a block's staging aims at, and the most
+# a block can have on the card (227 KB)
+TILE_SMEM = 24 * 1024
+SMEM_MAX = 232448
+
+
+def tile_bytes(W: int, T: int) -> int:
+    """Shared memory of K15's tile of T rows of W lanes: the rows and
+    one instance's successors at the odd stride W | 1, en and aok."""
+    return T * (8 * (W | 1) + 2)
+
+
+def tile_rows(W: int) -> int:
+    """K15's rows a block: the largest power of two T <= 256 whose tile
+    fits TILE_SMEM, else 1 when one row's fits SMEM_MAX, else 0 (rows
+    too wide to stage: the kernel then writes each output where its
+    thread stands)."""
+    T = 256
+    while T > 1 and tile_bytes(W, T) > TILE_SMEM:
+        T //= 2
+    if tile_bytes(W, T) <= TILE_SMEM:
+        return T
+    return 1 if tile_bytes(W, 1) <= SMEM_MAX else 0
 
 
 class GenError(RuntimeError):
@@ -356,7 +383,9 @@ PRELUDE = r"""// Generated by compile/cgen.py: the transition kernels of one
 // engine (K15 gen_expand, K16 gen_pred, K17 gen_value).  Replaces the
 // reference's jax.vmap of compile_action2 / compile_predicate2 /
 // compile_value2 (jaxmc/compile/kernel2.py:2464, :2792, :2762).  Bound by
-// bytes: each thread reads one state row and writes its outputs.
+// bytes: the rows read once, every output written once.  K15 stages a
+// tile of rows and each instance's successor tile in shared memory, so
+// both move in whole 16-byte runs.
 #include <stdint.h>
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -459,10 +488,10 @@ def _check_outputs(u: Unit, W: int) -> int:
 def generate(units: Sequence[Unit], W: int, L: int) -> Tuple[str, Dict]:
     """The engine's source and its layout: {'actions': [unit index],
     'preds': [...], 'value': unit index or None, 'VW': view width,
-    'lines': [(first line, last line, label)]}."""
+    'lines': [(first line, last line, label)], 'tile': K15's T}."""
     parts = [PRELUDE]
     meta: Dict[str, Any] = {"actions": [], "preds": [], "value": None,
-                            "VW": 0, "lines": []}
+                            "VW": 0, "lines": [], "tile": tile_rows(W)}
     for i, u in enumerate(units):
         ow = _check_outputs(u, W)
         first = sum(p.count("\n") + 1 for p in parts) + 1
@@ -526,8 +555,166 @@ def _kernels(meta, W: int, L: int) -> str:
     else:
         s.append("  (void)x; (void)c; (void)out;")
     s.append("}")
+    s.append(f"#define JMC_TILE {int(meta['tile'])}")
+    s.append(f"#define JMC_WS {W | 1}")
     s.append(r"""
+#if JMC_TILE
+// K15's staged tile, shared by the kernel and the host build.  A block
+// stages frontier rows [n0, n0 + nt) in shared memory at the odd row
+// stride JMC_WS (lane k of neighbouring rows in different banks), runs
+// each instance of its group over them with one thread a row, stages
+// the successors at the same stride and writes the instance's [nt, W]
+// successor run, en and aok whole.  Thread tid of nthr moves words
+// tid, tid + nthr, ...; the 16-byte-aligned middle of a run moves in
+// 16-byte accesses, en and aok in 4-byte stores.
+#define JMC_SMEM_BYTES (2 * JMC_TILE * JMC_WS * 4 + 2 * JMC_TILE)
 #ifdef __CUDACC__
+typedef int4 jmc_v4;
+JMC_FN jmc_v4 jmc_ld4(const int32_t* p) {
+  return __ldg(reinterpret_cast<const int4*>(p));
+}
+JMC_FN void jmc_st4(int32_t* p, jmc_v4 v) {
+  *reinterpret_cast<int4*>(p) = v;
+}
+JMC_FN void jmc_st_u32(uint8_t* p, uint32_t v) {
+  *reinterpret_cast<uint32_t*>(p) = v;
+}
+#else
+#include <stdlib.h>
+#include <string.h>
+typedef struct { int32_t x, y, z, w; } jmc_v4;
+JMC_FN jmc_v4 jmc_ld4(const int32_t* p) {
+  jmc_v4 v;
+  memcpy(&v, p, 16);
+  return v;
+}
+JMC_FN void jmc_st4(int32_t* p, jmc_v4 v) { memcpy(p, &v, 16); }
+JMC_FN void jmc_st_u32(uint8_t* p, uint32_t v) { memcpy(p, &v, 4); }
+#endif
+// the words before p's first 16-byte boundary, at most nw
+JMC_FN int jmc_head4(const int32_t* p, int nw) {
+  const int h = (int)((16u - ((uint32_t)(uintptr_t)p & 15u)) & 15u) >> 2;
+  return h < nw ? h : nw;
+}
+// s[(i / JMC_W) * JMC_WS + i % JMC_W] = g[i] for i in [0, nw)
+JMC_FN void jmc_tile_in(int tid, int nthr, const int32_t* __restrict__ g,
+                        int nw, int32_t* __restrict__ s) {
+  const int h = jmc_head4(g, nw), nv = (nw - h) >> 2;
+  for (int i = tid; i < h; i += nthr)
+    s[(i / JMC_W) * JMC_WS + i % JMC_W] = g[i];
+  for (int v = tid; v < nv; v += nthr) {
+    const jmc_v4 q = jmc_ld4(g + h + 4 * v);
+    const int32_t e[4] = {q.x, q.y, q.z, q.w};
+    const int i = h + 4 * v;
+    int r = i / JMC_W, l = i % JMC_W;
+    for (int k = 0; k < 4; ++k) {
+      s[r * JMC_WS + l] = e[k];
+      if (++l == JMC_W) {
+        l = 0;
+        ++r;
+      }
+    }
+  }
+  for (int i = h + 4 * nv + tid; i < nw; i += nthr)
+    s[(i / JMC_W) * JMC_WS + i % JMC_W] = g[i];
+}
+// g[i] = s[(i / JMC_W) * JMC_WS + i % JMC_W] for i in [0, nw)
+JMC_FN void jmc_tile_out(int tid, int nthr, const int32_t* __restrict__ s,
+                         int nw, int32_t* __restrict__ g) {
+  const int h = jmc_head4(g, nw), nv = (nw - h) >> 2;
+  for (int i = tid; i < h; i += nthr)
+    g[i] = s[(i / JMC_W) * JMC_WS + i % JMC_W];
+  for (int v = tid; v < nv; v += nthr) {
+    const int i = h + 4 * v;
+    int r = i / JMC_W, l = i % JMC_W;
+    int32_t e[4];
+    for (int k = 0; k < 4; ++k) {
+      e[k] = s[r * JMC_WS + l];
+      if (++l == JMC_W) {
+        l = 0;
+        ++r;
+      }
+    }
+    jmc_v4 q;
+    q.x = e[0];
+    q.y = e[1];
+    q.z = e[2];
+    q.w = e[3];
+    jmc_st4(g + i, q);
+  }
+  for (int i = h + 4 * nv + tid; i < nw; i += nthr)
+    g[i] = s[(i / JMC_W) * JMC_WS + i % JMC_W];
+}
+// g[i] = s[i] for i in [0, n), the 4-byte-aligned middle in 4-byte stores
+JMC_FN void jmc_bytes_out(int tid, int nthr, const uint8_t* __restrict__ s,
+                          int n, uint8_t* __restrict__ g) {
+  int h = (int)((4u - ((uint32_t)(uintptr_t)g & 3u)) & 3u);
+  if (h > n) h = n;
+  const int nv = (n - h) >> 2;
+  for (int i = tid; i < h; i += nthr) g[i] = s[i];
+  for (int v = tid; v < nv; v += nthr) {
+    const uint8_t* b = s + h + 4 * v;
+    jmc_st_u32(g + h + 4 * v, (uint32_t)b[0] | ((uint32_t)b[1] << 8) |
+                                  ((uint32_t)b[2] << 16) |
+                                  ((uint32_t)b[3] << 24));
+  }
+  for (int i = h + 4 * nv + tid; i < n; i += nthr) g[i] = s[i];
+}
+// block b: rows [n0, n0 + nt) of tile b / groups, instances [a0, a1) of
+// group b % groups (G a group; the groups of a tile are neighbours)
+JMC_FN void jmc_block(int64_t b, int64_t groups, int G, int A, int64_t N,
+                      int64_t* n0, int* nt, int* a0, int* a1) {
+  const int64_t tile = b / groups;
+  const int g = (int)(b - tile * groups);
+  *n0 = tile * JMC_TILE;
+  *nt = N - *n0 < JMC_TILE ? (int)(N - *n0) : JMC_TILE;
+  *a0 = g * G;
+  *a1 = A - *a0 < G ? A : *a0 + G;
+}
+// thread t's row under instance `unit`: en and aok to the staged bytes,
+// ov to its place, the successor to the staged tile
+JMC_FN void jmc_tile_row(int t, int nt, int32_t unit, const int32_t* xs,
+                         const int32_t* cv, int64_t per, int64_t n0,
+                         uint8_t* ens, uint8_t* aoks, int32_t* ov,
+                         int32_t* ss) {
+  if (t >= nt) return;
+  jmc_expand_one(unit, xs + t * JMC_WS, cv + ((n0 + t) / per) * JMC_L,
+                 ens + t, aoks + t, ov + t, ss + t * JMC_WS);
+}
+#endif
+
+#ifdef __CUDACC__
+#if JMC_TILE
+__global__ void __launch_bounds__(JMC_TILE)
+    jmc_gen_expand_k(const int32_t* __restrict__ rows,
+                     const int32_t* __restrict__ cv, int64_t per,
+                     const int32_t* __restrict__ units, int A, int64_t N,
+                     int G, int64_t groups, uint8_t* en, uint8_t* aok,
+                     int32_t* ov, int32_t* succ) {
+  extern __shared__ int4 jmc_smem[];
+  int32_t* xs = reinterpret_cast<int32_t*>(jmc_smem);
+  int32_t* ss = xs + JMC_TILE * JMC_WS;
+  uint8_t* ens = reinterpret_cast<uint8_t*>(ss + JMC_TILE * JMC_WS);
+  uint8_t* aoks = ens + JMC_TILE;
+  int64_t n0;
+  int nt, a0, a1;
+  jmc_block(blockIdx.x, groups, G, A, N, &n0, &nt, &a0, &a1);
+  const int t = threadIdx.x;
+  jmc_tile_in(t, JMC_TILE, rows + n0 * JMC_W, nt * JMC_W, xs);
+  __syncthreads();
+  for (int a = a0; a < a1; ++a) {
+    const int64_t i0 = (int64_t)a * N + n0;
+    jmc_tile_row(t, nt, units[a], xs, cv, per, n0, ens, aoks, ov + i0, ss);
+    __syncthreads();
+    jmc_tile_out(t, JMC_TILE, ss, nt * JMC_W, succ + i0 * JMC_W);
+    jmc_bytes_out(t, JMC_TILE, ens, nt, en + i0);
+    jmc_bytes_out(t, JMC_TILE, aoks, nt, aok + i0);
+    __syncthreads();
+  }
+}
+#else
+// rows too wide to stage: one thread per (instance, row), blockIdx.y
+// names the instance, each output written where the thread stands
 __global__ void jmc_gen_expand_k(const int32_t* __restrict__ rows,
                                  const int32_t* __restrict__ cv,
                                  int64_t per,
@@ -540,6 +727,7 @@ __global__ void jmc_gen_expand_k(const int32_t* __restrict__ rows,
   jmc_expand_one(units[blockIdx.y], rows + n * JMC_W, cv + (n / per) * JMC_L,
                  en + i, aok + i, ov + i, succ + i * JMC_W);
 }
+#endif
 __global__ void jmc_gen_pred_k(int32_t which,
                                const int32_t* __restrict__ rows,
                                const int32_t* __restrict__ cv,
@@ -556,16 +744,37 @@ __global__ void jmc_gen_value_k(const int32_t* __restrict__ rows,
   jmc_value_one(rows + n * JMC_W, cv + (n / per) * JMC_L, out + n * JMC_VW);
 }
 #define JMC_BLOCK 128
+// K15 over N rows and the A instances units[], G instances a block
 extern "C" int jmc_gen_expand(const void* rows, const void* cv,
                               int64_t per, const void* units, int A,
-                              int64_t N, void* en, void* aok, void* ov,
-                              void* succ, void* stream) {
+                              int64_t N, int G, void* en, void* aok,
+                              void* ov, void* succ, void* stream) {
   if (N == 0 || A == 0) return 0;
+#if JMC_TILE
+  if (G < 1) return (int)cudaErrorInvalidValue;
+  const int64_t groups = (A + G - 1) / G;
+  const int64_t blocks = (N + JMC_TILE - 1) / JMC_TILE * groups;
+  if (blocks > 2147483647) return (int)cudaErrorInvalidValue;
+  if (JMC_SMEM_BYTES > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        jmc_gen_expand_k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        JMC_SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+  }
+  jmc_gen_expand_k<<<(unsigned)blocks, JMC_TILE, JMC_SMEM_BYTES,
+                     (cudaStream_t)stream>>>(
+      (const int32_t*)rows, (const int32_t*)cv, per,
+      (const int32_t*)units, A, N, G, groups, (uint8_t*)en, (uint8_t*)aok,
+      (int32_t*)ov, (int32_t*)succ);
+#else
+  (void)G;
+  if (A > 65535) return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)((N + JMC_BLOCK - 1) / JMC_BLOCK), (unsigned)A);
   jmc_gen_expand_k<<<grid, JMC_BLOCK, 0, (cudaStream_t)stream>>>(
       (const int32_t*)rows, (const int32_t*)cv, per,
       (const int32_t*)units, N, (uint8_t*)en, (uint8_t*)aok, (int32_t*)ov,
       (int32_t*)succ);
+#endif
   return (int)cudaGetLastError();
 }
 extern "C" int jmc_gen_pred(int which, const void* rows, const void* cv,
@@ -589,11 +798,48 @@ extern "C" int jmc_gen_value(const void* rows, const void* cv,
   return (int)cudaGetLastError();
 }
 #else
-// the host build (tests only): the same row functions over every row
+// the host build (tests only): the same row functions over every row;
+// K15 runs the kernel's blocks in order, each thread's part of a phase
+// before the next phase, shared memory poisoned at every block
 extern "C" int jmc_gen_expand_host(const void* rows, const void* cv,
                                    int64_t per, const void* units,
-                                   int A, int64_t N, void* en, void* aok,
-                                   void* ov, void* succ) {
+                                   int A, int64_t N, int G, void* en,
+                                   void* aok, void* ov, void* succ) {
+  if (N == 0 || A == 0) return 0;
+#if JMC_TILE
+  if (G < 1) return 1;
+  const int64_t groups = (A + G - 1) / G;
+  const int64_t blocks = (N + JMC_TILE - 1) / JMC_TILE * groups;
+  int32_t* xs = (int32_t*)malloc(JMC_SMEM_BYTES);
+  if (xs == NULL) return 1;
+  int32_t* ss = xs + JMC_TILE * JMC_WS;
+  uint8_t* ens = (uint8_t*)(ss + JMC_TILE * JMC_WS);
+  uint8_t* aoks = ens + JMC_TILE;
+  for (int64_t b = 0; b < blocks; ++b) {
+    memset(xs, 0xA5, JMC_SMEM_BYTES);
+    int64_t n0;
+    int nt, a0, a1;
+    jmc_block(b, groups, G, A, N, &n0, &nt, &a0, &a1);
+    for (int t = 0; t < JMC_TILE; ++t)
+      jmc_tile_in(t, JMC_TILE, (const int32_t*)rows + n0 * JMC_W,
+                  nt * JMC_W, xs);
+    for (int a = a0; a < a1; ++a) {
+      const int64_t i0 = (int64_t)a * N + n0;
+      for (int t = 0; t < JMC_TILE; ++t)
+        jmc_tile_row(t, nt, ((const int32_t*)units)[a], xs,
+                     (const int32_t*)cv, per, n0, ens, aoks,
+                     (int32_t*)ov + i0, ss);
+      for (int t = 0; t < JMC_TILE; ++t) {
+        jmc_tile_out(t, JMC_TILE, ss, nt * JMC_W,
+                     (int32_t*)succ + i0 * JMC_W);
+        jmc_bytes_out(t, JMC_TILE, ens, nt, (uint8_t*)en + i0);
+        jmc_bytes_out(t, JMC_TILE, aoks, nt, (uint8_t*)aok + i0);
+      }
+    }
+  }
+  free(xs);
+#else
+  (void)G;
   for (int a = 0; a < A; ++a)
     for (int64_t n = 0; n < N; ++n) {
       int64_t i = (int64_t)a * N + n;
@@ -603,6 +849,7 @@ extern "C" int jmc_gen_expand_host(const void* rows, const void* cv,
                      (uint8_t*)aok + i, (int32_t*)ov + i,
                      (int32_t*)succ + i * JMC_W);
     }
+#endif
   return 0;
 }
 extern "C" int jmc_gen_pred_host(int which, const void* rows,

@@ -470,6 +470,11 @@ def _flatten(progs: List[_Prog], tabs: List[np.ndarray], U: int,
         assert 0 <= lane < W
     for off, rows, rw, _kc, _c0, _nc in sorts:
         assert 0 <= off and off + rows * rw <= W
+    # K5 builds a candidate lane by lane: each permutation's lane ops in
+    # increasing output lane
+    for p in range(len(progs)):
+        outs = [lops[i][0] for i in range(pl[p], pl[p + 1])]
+        assert all(a < b for a, b in zip(outs, outs[1:]))
     parts = [np.asarray(pl, np.int32),
              np.asarray(lops, np.int32).reshape(-1),
              np.asarray(alts, np.int32).reshape(-1),

@@ -48,8 +48,7 @@ ARGTYPES = {
     "jmc_merge_flags": [_P] * 5 + [_I64, _I64, _I, _P],
     "jmc_merge_compact": [_P] * 6 + [_I64, _I64, _P],
     "jmc_merge_scatter": [_P] * 7 + [_I64, _I64, _I64, _I, _P],
-    "jmc_canon_threads": [_I64],
-    "jmc_canon_rows": [_P] * 3 + [_I, _P, _P, _I64, _I, _P],
+    "jmc_canon_rows": [_P] * 3 + [_I] * 4 + [_P, _I64, _I, _P],
     "jmc_por_max_arms": [],
     "jmc_por_mask": [_P] * 6 + [_I, _I64, _I, _P],
     "jmc_hstep_tile": [],
@@ -79,14 +78,14 @@ ARGTYPES = {
     "jmc_mesh_scalars": [_P] * 2 + [_I, _I, _I, _I, _P],
 }
 # return types other than the cudaError_t (an int) of a launch
-RESTYPE = {"jmc_canon_threads": _I64, "jmc_hstep_workspace_bytes": _I64,
+RESTYPE = {"jmc_hstep_workspace_bytes": _I64,
            "jmc_res_workspace_bytes": _I64,
            "jmc_fullsort_workspace_bytes": _I64}
 ENTRY = {"unpack": ["jmc_unpack_rows"], "keys": ["jmc_keys_of"],
          "probe": ["jmc_seen_probe"],
          "merge": ["jmc_merge_flags", "jmc_merge_compact",
                    "jmc_merge_scatter"],
-         "canon": ["jmc_canon_threads", "jmc_canon_rows"],
+         "canon": ["jmc_canon_rows"],
          "por": ["jmc_por_max_arms", "jmc_por_mask"],
          "hstep": ["jmc_hstep_tile", "jmc_hstep_workspace_bytes",
                    "jmc_hstep_epilogue"],
@@ -208,7 +207,8 @@ def library(name: str) -> ctypes.CDLL:
 
 GEN_ROOT = os.path.join(BUILD_ROOT, "gen")
 GEN_ARGTYPES = {
-    "jmc_gen_expand": [_P, _P, _I64, _P, _I, _I64, _P, _P, _P, _P, _P],
+    "jmc_gen_expand": [_P, _P, _I64, _P, _I, _I64, _I, _P, _P, _P, _P,
+                       _P],
     "jmc_gen_pred": [_I, _P, _P, _I64, _I64, _P, _P],
     "jmc_gen_value": [_P, _P, _I64, _I64, _P, _P],
 }

@@ -598,10 +598,48 @@ def canon_rows_twin(rows: torch.Tensor, valid: torch.Tensor, canon
     return torch.where(valid[:, None], canon.twin(rows), rows)
 
 
+# K5's shared memory: what a block's tile, candidate, minimum and
+# program aim at, and the most a block can have on the card (227 KB)
+CANON_SMEM = 64 * 1024
+SMEM_MAX = 232448
+
+
+def canon_geometry(program, budget=None):
+    """(rows a block T, program staged, shared bytes) of a K5 launch for
+    the layout's program (W = program[2]).  Fixed: a 16-byte counter and
+    the packed lane ops, one word each (padded to 16 bytes).  A row
+    costs its staged copy at the odd stride W | 1, its index in the list
+    of valid rows, its running minimum and, when the program has sort
+    blocks, its candidate: 4 * (W | 1 + 1 + W * (2 or 1)) bytes.  The
+    program (padded to 16 bytes) is staged when it fits beside 32 rows
+    in `budget` (CANON_SMEM); T is what the rest holds, at most 256, a
+    multiple of 32 from 32 up.  A row too wide for `budget` takes
+    SMEM_MAX instead; one wider still raises."""
+    if budget is None:
+        budget = CANON_SMEM
+    W = int(program[2])
+    bufs = 2 if int(program[9]) > int(program[8]) else 1
+    lops = (int(program[5]) - int(program[4])) // 3
+    row = 4 * ((W | 1) + 1 + bufs * W)
+    prog = 4 * (-(-len(program) // 4) * 4)
+    fixed0 = 16 + 4 * (-(-lops // 4) * 4)
+    for b in (budget, max(budget, SMEM_MAX)):
+        staged = fixed0 + prog + 32 * row <= b
+        fixed = fixed0 + (prog if staged else 0)
+        T = min(256, (b - fixed) // row)
+        if T >= 32:
+            T -= T % 32
+        if T >= 1:
+            return T, staged, fixed + T * row
+    raise ValueError(f"canon_rows: a row of {W} lanes needs {row} bytes "
+                     f"of shared memory, more than a block's {SMEM_MAX}")
+
+
 def canon_rows(rows: torch.Tensor, valid: torch.Tensor, canon
                ) -> torch.Tensor:
     """K5: canon_rows_twin's function; `canon` is the layout's
-    compile/symmetry2.Canon, whose program the kernel interprets."""
+    compile/symmetry2.Canon, whose program the kernel interprets, in
+    blocks of canon_geometry(program)."""
     _check(rows, "canon_rows.rows", 2)
     _check(valid, "canon_rows.valid", 1, torch.bool)
     if rows.shape[1] != canon.width or valid.shape[0] != rows.shape[0]:
@@ -617,13 +655,11 @@ def canon_rows(rows: torch.Tensor, valid: torch.Tensor, canon
     out = torch.empty_like(rows)
     if N == 0:
         return out
-    threads = int(lib.jmc_canon_threads(ctypes.c_int64(N)))
-    scratch = torch.empty((2 * W * threads,), dtype=torch.int32,
-                          device=rows.device)
+    T, staged, smem = canon_geometry(canon.program)
     rc = lib.jmc_canon_rows(
         _ptr(rows), _ptr(valid), _ptr(prog), ctypes.c_int(prog.numel()),
-        _ptr(out), _ptr(scratch), ctypes.c_int64(N), ctypes.c_int(W),
-        _stream())
+        ctypes.c_int(int(staged)), ctypes.c_int(T), ctypes.c_int(smem),
+        _ptr(out), ctypes.c_int64(N), ctypes.c_int(W), _stream())
     _launch("canon_rows", rc)
     return out
 
@@ -1649,13 +1685,22 @@ def mesh_scalars(part: torch.Tensor, FC: int, SC: int,
 # K15-K17 the generated transition kernels (compile/cgen.py)
 # ---------------------------------------------------------------------------
 
+# the 1-element table a module that lifts no constant passes, one per
+# device (the kernels never read it)
+_NO_CONSTS: Dict[torch.device, torch.Tensor] = {}
+
+
 def _cvals(gm, cvals, N: int, dev):
     """(table, rows per table row) of the lifted constants for a launch
     over N > 0 rows: cvals [M, L] int32 with M dividing N (one row per
     batch member, M = 1 for all rows alike), or a 1-element dummy when
     the module lifts none."""
     if not gm.L:
-        return torch.zeros((1,), dtype=torch.int32, device=dev), 1
+        dummy = _NO_CONSTS.get(dev)
+        if dummy is None:
+            dummy = _NO_CONSTS[dev] = torch.zeros((1,), dtype=torch.int32,
+                                                 device=dev)
+        return dummy, 1
     if cvals is None:
         raise ValueError(f"generated kernels: {gm.L} lifted constants and no "
                          f"cvals")
@@ -1690,31 +1735,55 @@ def gen_expand_twin(gm, rows: torch.Tensor, units: torch.Tensor,
     return en, aok, ov, succ
 
 
+# K15's blocks a launch aims at (132 SMs, 8 blocks each): below it a
+# frontier's tiles are shared by several instance groups
+GEN_BLOCKS = 132 * 8
+
+
+def gen_groups(A: int, tiles: int) -> int:
+    """K15's instances a block (G) for A instances over `tiles` tiles:
+    all of them when the tiles alone fill GEN_BLOCKS (each tile is then
+    read once), else ceil(A / groups) with tiles * groups reaching it.
+    The groups of a tile are neighbouring blocks, so its later reads
+    hit L2."""
+    groups = min(max(A, 1), max(1, -(-GEN_BLOCKS // max(tiles, 1))))
+    return max(1, -(-A // groups))
+
+
 def gen_expand(gm, rows: torch.Tensor, units: torch.Tensor, cvals=None):
-    """K15: gen_expand_twin's function in one launch, one thread per
-    (instance, row); `units` int32 [A] on the rows' device."""
-    _check(rows, "gen_expand.rows", 2)
-    _check(units, "gen_expand.units", 1)
+    """K15: gen_expand_twin's function in one launch: a block stages a
+    tile of gm.meta["tile"] rows and runs gen_groups' instances over it
+    (one thread per (instance, row) when the rows are too wide to
+    stage); `units` int32 [A] on the rows' device.  succ and ov are
+    views of one allocation, en and aok of another; the checks run on
+    a short path (at a small level the host's work is the call)."""
+    if not (_ok(rows, torch.int32, 2) and _ok(units, torch.int32, 1)):
+        _check(rows, "gen_expand.rows", 2)
+        _check(units, "gen_expand.units", 1)
     if rows.shape[1] != gm.W:
         raise ValueError(f"gen_expand: rows of {rows.shape[1]} lanes, "
                          f"module has W={gm.W}")
-    if rows.device.type == "cpu":
+    if rows.is_cpu:
         return gen_expand_twin(gm, rows, units, cvals)
     _same_device("gen_expand", rows, units)
     lib = gm.load()
     A, N, W = units.shape[0], rows.shape[0], gm.W
     dev = rows.device
-    en = torch.empty((A, N), dtype=torch.bool, device=dev)
-    aok = torch.empty((A, N), dtype=torch.bool, device=dev)
-    ov = torch.empty((A, N), dtype=torch.int32, device=dev)
-    succ = torch.empty((A, N, W), dtype=torch.int32, device=dev)
+    words = torch.empty((A * N * (W + 1),), dtype=torch.int32, device=dev)
+    succ, ov = words.split_with_sizes([A * N * W, A * N])
+    flags = torch.empty((2 * A * N,), dtype=torch.bool, device=dev)
+    en, aok = flags.split_with_sizes([A * N, A * N])
+    en, aok = en.view(A, N), aok.view(A, N)
+    ov, succ = ov.view(A, N), succ.view(A, N, W)
     if A == 0 or N == 0:
         return en, aok, ov, succ
     cv, per = _cvals(gm, cvals, N, dev)
-    rc = lib.jmc_gen_expand(_ptr(rows), _ptr(cv), ctypes.c_int64(per),
-                            _ptr(units), ctypes.c_int(A), ctypes.c_int64(N),
-                            _ptr(en), _ptr(aok), _ptr(ov), _ptr(succ),
-                            _stream())
+    T = gm.meta["tile"]
+    G = gen_groups(A, -(-N // T)) if T else A
+    rc = lib.jmc_gen_expand(rows.data_ptr(), cv.data_ptr(), per,
+                            units.data_ptr(), A, N, G, en.data_ptr(),
+                            aok.data_ptr(), ov.data_ptr(), succ.data_ptr(),
+                            _raw_stream(rows.get_device()))
     _launch("gen_expand", rc)
     return en, aok, ov, succ
 

@@ -291,6 +291,34 @@ def test_canon_rows_matches_twin(card, which, n):
     _eq(got, ops.canon_rows_twin(r, v, canon))
 
 
+@pytest.mark.parametrize("budget,T", [(8192, 3), (4096, 1)])
+def test_canon_rows_small_blocks(card, budget, T, monkeypatch):
+    """K5 on the symkinds layout (W 138) with a budget (ops.CANON_SMEM)
+    that forces blocks of T rows and leaves the program in device
+    memory; rows at every
+    word alignment, all-invalid rows, one row."""
+    from jaxmc_torch.kernels import ops
+    base = os.path.join(ROOT, "jaxmc_torch", "fixtures", "symkinds")
+    lay, canon = _sym_layout(base + ".tla", base + ".cfg")
+    W = lay.width
+    monkeypatch.setattr(ops, "CANON_SMEM", budget)
+    assert ops.canon_geometry(canon.program)[:2] == (T, False)
+    rng = np.random.default_rng(budget)
+    rows = rng.integers(-2, 14, (3001, W)).astype(np.int32)
+    rows[rng.random(rows.shape) < 0.05] = SENT
+    flat = torch.as_tensor(rows.reshape(-1), device=card)
+    for off in range(4):
+        r = flat[off:off + 3000 * W].view(3000, W)
+        for v in (rng.random(3000) < 0.8, np.zeros(3000, bool)):
+            v = torch.as_tensor(v, device=card)
+            want = ops.canon_rows_twin(r, v, canon)
+            for _ in range(2):
+                _eq(ops.canon_rows(r, v, canon), want)
+    one = flat[:W].view(1, W)
+    v1 = torch.ones(1, dtype=torch.bool, device=card)
+    _eq(ops.canon_rows(one, v1, canon), ops.canon_rows_twin(one, v1, canon))
+
+
 @pytest.mark.parametrize("fp", [False, True])
 @pytest.mark.parametrize("n", [1, 4096, 655360])
 def test_keys_of_basis_branches_match_twin(card, n, fp):
@@ -1274,6 +1302,9 @@ def _gen_engine(spec, cfg, **kw):
     ("transfer_scaled.tla", "transfer_scaled.cfg"),
     ("msgstoy.tla", "msgstoy.cfg"),                  # slotted instances
     ("pcal_intro_buggy.tla", None),
+    # W 26: tiles of 64 rows
+    ("msgstoy.tla", os.path.join(ROOT, "jaxmc_torch", "fixtures",
+                                 "msgstoy_scaled.cfg")),
 ])
 def test_gen_expand_matches_twin(card, spec, cfg):
     """K15 against the emitter's loop, bit-exact, and its counter
@@ -1295,6 +1326,77 @@ def test_gen_expand_matches_twin(card, spec, cfg):
         _eq(a, b)
     assert all(x.shape[1] == 0 for x in
                ops.gen_expand(eng._gen, rows[:0].contiguous(), units))
+
+
+@pytest.mark.parametrize("spec,cfg", [
+    ("pcal_intro_buggy.tla", None),                  # W 13, odd
+    ("msgstoy.tla", "msgstoy.cfg"),
+])
+def test_gen_expand_tile_edges(card, spec, cfg, monkeypatch):
+    """K15 with tiles of 8 rows (cgen.TILE_SMEM cut to fit 8) over rows
+    at every word alignment, N not a multiple of the tile, one instance,
+    each grouping of instances from one a block to all of them; and rows
+    too wide to stage (the direct kernel).  Twice a call, bit for bit."""
+    from jaxmc_torch.compile import cgen
+    from jaxmc_torch.kernels import ops
+    eng0, rows0, units = _gen_engine(spec, cfg)
+    for smem, smax, T in ((cgen.tile_bytes(eng0.W, 8), cgen.SMEM_MAX, 8),
+                          (0, 0, 0)):
+        monkeypatch.setattr(cgen, "TILE_SMEM", smem)
+        monkeypatch.setattr(cgen, "SMEM_MAX", smax)
+        eng, _rows, _units = _gen_engine(spec, cfg)
+        gm = eng._gen
+        assert gm.meta["tile"] == T
+        n = 3 * 8 + 5
+        assert rows0.shape[0] > n
+        for off in range(4):
+            # n rows from word `off` of the block: off words from 16 bytes
+            rows = rows0.reshape(-1)[off:off + n * eng.W].view(n, eng.W)
+            for blocks in (1, ops.GEN_BLOCKS, 1 << 30):
+                monkeypatch.setattr(ops, "GEN_BLOCKS", blocks)
+                want = ops.gen_expand_twin(gm, rows, units)
+                for _ in range(2):
+                    for a, b in zip(ops.gen_expand(gm, rows, units), want):
+                        _eq(a, b)
+                one = units[1:2].contiguous()
+                for a, b in zip(ops.gen_expand(gm, rows, one),
+                                ops.gen_expand_twin(gm, rows, one)):
+                    _eq(a, b)
+
+
+def test_gen_expand_in_a_batch_cohort(card):
+    """Every K15 call of a msgstoy cohort (member tables whose members
+    share tiles) against the emitter, bit for bit; the members' counts
+    equal their solo runs'."""
+    from jaxmc_torch.backend.batch import BatchCheckEngine
+    from jaxmc_torch.backend.bfs import TorchExplorer
+    from jaxmc_torch.kernels import ops
+    from jaxmc_torch.session import SessionConfig, load_model
+    fx = os.path.join(ROOT, "jaxmc_torch", "fixtures")
+    cfgs = [os.path.join(fx, f"msgstoy_batch_cap{c}.cfg") for c in (1, 2)]
+    spec = os.path.join(SPECS, "msgstoy.tla")
+    gen = ops.gen_expand
+    calls = []
+
+    def checked(gm, rows, units, cvals=None):
+        out = gen(gm, rows, units, cvals)
+        for a, b in zip(out, ops.gen_expand_twin(gm, rows, units, cvals)):
+            _eq(a, b)
+        calls.append(None if cvals is None else cvals.shape[0])
+        return out
+    ops.gen_expand = checked
+    try:
+        members = BatchCheckEngine(
+            [SessionConfig(spec=spec, cfg=c, host_seen=True, chunk=4096,
+                           device="cuda") for c in cfgs]).build().run()
+    finally:
+        ops.gen_expand = gen
+    assert calls and any(m and m > 1 for m in calls), calls
+    for c, m in zip(cfgs, members):
+        r = TorchExplorer(load_model(spec, c), device="cuda",
+                          host_seen=True, chunk=4096).run()
+        assert (m.result.distinct, m.result.generated) == \
+            (r.distinct, r.generated)
 
 
 def test_gen_pred_and_value_match_twins(card):

@@ -59,7 +59,7 @@ def host_lib(source: str, out_dir: str) -> ctypes.CDLL:
                        check=True)
     lib = ctypes.CDLL(so)
     lib.jmc_gen_expand_host.argtypes = [_P, _P, _I64, _P, ctypes.c_int,
-                                        _I64, _P, _P, _P, _P]
+                                        _I64, ctypes.c_int, _P, _P, _P, _P]
     lib.jmc_gen_pred_host.argtypes = [ctypes.c_int, _P, _P, _I64, _I64, _P]
     lib.jmc_gen_value_host.argtypes = [_P, _P, _I64, _I64, _P]
     return lib
@@ -77,17 +77,23 @@ def _cv(gm, cvals, n):
     return cv, n // cv.shape[0]
 
 
-def host_expand(lib, gm, rows, units, cvals=None):
+def host_expand(lib, gm, rows, units, cvals=None, G=None):
+    """K15's host entry: the kernel's blocks of gm.meta["tile"] rows with
+    `G` instances each (the wrapper's ops.gen_groups by default)."""
+    from jaxmc_torch.kernels import ops
     rows = np.ascontiguousarray(rows, np.int32)
     units = np.ascontiguousarray(units, np.int32)
     A, N, W = len(units), rows.shape[0], gm.W
+    T = gm.meta["tile"]
+    if G is None:
+        G = ops.gen_groups(A, -(-N // T)) if T else A
     en = np.zeros((A, N), np.uint8)
     aok = np.zeros((A, N), np.uint8)
     ov = np.zeros((A, N), np.int32)
     succ = np.zeros((A, N, W), np.int32)
     cv, cs = _cv(gm, cvals, N)
-    lib.jmc_gen_expand_host(_p(rows), _p(cv), cs, _p(units), A, N, _p(en),
-                            _p(aok), _p(ov), _p(succ))
+    assert lib.jmc_gen_expand_host(_p(rows), _p(cv), cs, _p(units), A, N, G,
+                                   _p(en), _p(aok), _p(ov), _p(succ)) == 0
     return en.astype(bool), aok.astype(bool), ov, succ
 
 
@@ -464,6 +470,48 @@ def test_edge_semantics_are_the_lanes_rules(host_dir):
         L.argmax(L.asarray([1, 3, 3, 0]) + r[4]).reshape(1)]), host_dir)
     assert got[0].tolist() == [INT_MIN, 0, 0, 0, -1, INT_MIN + 2, INT_MIN,
                                2, INT_MIN, 1, 1]
+
+
+@pytest.mark.parametrize("spec,cfg", [
+    ("pcal_intro_buggy.tla", None),          # W 13, odd
+    ("msgstoy.tla", "msgstoy.cfg"),          # slotted instances
+])
+def test_host_build_runs_small_tiles_and_the_direct_kernel(
+        spec, cfg, host_dir, monkeypatch):
+    """The host entry runs K15's blocks: tiles of 8 rows (TILE_SMEM cut
+    to fit 8) over 3T + 5 rows at every grouping and for one instance,
+    and rows too wide to stage (the direct kernel, JMC_TILE 0), equal to
+    the emitter."""
+    from jaxmc_torch.compile import cgen
+    lt, cast, predst, viewt, sampled, kc = _build("jaxmc_torch", spec, cfg)
+    W = lt.width
+    rng = np.random.default_rng(4)
+    enc = np.stack([lt.encode(s) for s in sampled]).astype(np.int32)
+    rows = enc[rng.integers(0, len(enc), 29)]
+    for smem, smax, T in ((cgen.tile_bytes(W, 8), cgen.SMEM_MAX, 8),
+                          (0, 0, 0)):
+        monkeypatch.setattr(cgen, "TILE_SMEM", smem)
+        monkeypatch.setattr(cgen, "SMEM_MAX", smax)
+        gm = cgen.build_module(kc, W, cast, predst, viewt)
+        assert gm.meta["tile"] == T and f"#define JMC_TILE {T}\n" in \
+            gm.source
+        lib = host_lib(gm.source, host_dir)
+        A = len(gm.actions)
+        units = np.arange(A, dtype=np.int32)
+        want = [x.numpy() for x in ops_twin(gm, rows, units)]
+        for G in sorted({1, 2, A - 1, A} - {0}):
+            for g, w in zip(host_expand(lib, gm, rows, units, G=G), want):
+                np.testing.assert_array_equal(g, w)
+        one = units[A // 2:A // 2 + 1]
+        for g, w in zip(host_expand(lib, gm, rows[:5], one),
+                        ops_twin(gm, rows[:5], one)):
+            np.testing.assert_array_equal(g, w.numpy())
+
+
+def ops_twin(gm, rows, units):
+    from jaxmc_torch.kernels import ops
+    return ops.gen_expand_twin(gm, torch.as_tensor(rows),
+                               torch.as_tensor(units))
 
 
 def test_source_is_deterministic():
