@@ -679,6 +679,8 @@ def phase_kernels(eng, got, tag="3 kernels", suffix=""):
         t = ops.keys_of_twin(rows, valid, pt, fp, False)
         torch.cuda.synchronize()
         err = _max_abs(list(k), list(t))
+        dev_ms = device_ms(lambda: ops.keys_of(rows, valid, pt, fp, False),
+                           "keys_of_kernel")
         record("keys_of" + ("_fp128" if fp else ""),
                "jaxmc_torch/kernels/csrc/keys.cu",
                "jaxmc/compile/pack.py:441" if not fp
@@ -691,7 +693,8 @@ def phase_kernels(eng, got, tag="3 kernels", suffix=""):
                # keys and packed words of every row
                N + nv * W * 4 + N * (PW + K) * 4,
                nv * W * 6 + (nv * 4 * (PW * 3 + 5) if fp else 0),
-               note=f" [N={N} valid={nv} K={K}]")
+               note=f" [N={N} valid={nv} K={K}; 1 launch, "
+                    f"{_device_note(dev_ms)}]")
 
     # K3 seen_probe (on the sorted candidate keys, as rank_merge calls it)
     seen, seen_count, keys = got["merge"]
@@ -744,6 +747,8 @@ def phase_kernels(eng, got, tag="3 kernels", suffix=""):
               _max_abs({n: whole[n] for n in names},
                        {n: t[n] for n in names}))
     whole_ms = cuda_time(lambda: ops.rank_merge(seen, seen_count, keys))
+    dev_ms = device_ms(lambda: ops.merge_sorted(seen, seen_count, skeys,
+                                                sidx, found, lb), "merge_")
     new = int(k["new_count"])
     record("rank_merge", "jaxmc_torch/kernels/csrc/merge.cu",
            "jaxmc/backend/bfs.py:285", err,
@@ -759,7 +764,7 @@ def phase_kernels(eng, got, tag="3 kernels", suffix=""):
            + N * 4,
            N * (K + 6),
            note=f" [N={N} seen_count={seen_count} SC={SC} K={K} "
-                f"new={new}; 3 launches + 2 cumsums; "
+                f"new={new}; 2 launches, {_device_note(dev_ms)}; "
                 f"whole rank_merge (sort + K3 + K4) {whole_ms:.4f} ms]")
 
     # K15 gen_expand over the widest level's frontier block (B.1)
@@ -1045,6 +1050,7 @@ def check_canon(eng, got, counts, tag="8 symmetry"):
     k = ops.keys_of(*args, **kw)
     t = ops.keys_of_twin(*args, **kw)
     torch.cuda.synchronize()
+    dev_ms = device_ms(lambda: ops.keys_of(*args, **kw), "keys_of_kernel")
     out.append(_row(
         tag, "keys_of_canon", "jaxmc_torch/kernels/csrc/keys.cu",
         "jaxmc/backend/bfs.py:1621", counts["keys_of_canon"],
@@ -1054,7 +1060,8 @@ def check_canon(eng, got, counts, tag="8 symmetry"):
         # validity, the valid raw and canonical rows; keys and packed
         # rows of every row
         N + 2 * nv * W * 4 + N * (PW + K) * 4, 2 * nv * W * 6,
-        note=f" [N={N} valid={nv} K={K}]"))
+        note=f" [N={N} valid={nv} K={K}; 1 launch, "
+             f"{_device_note(dev_ms)}]"))
     # every container kind: random rows of the symkinds layout
     from jaxmc_torch.compile.kernel2 import build_layout2
     from jaxmc_torch.compile.symmetry2 import build_canon2
@@ -1102,6 +1109,7 @@ def check_view(eng, got, counts, tag="9 view"):
     k = ops.keys_of(*args, **kw)
     t = ops.keys_of_twin(*args, **kw)
     torch.cuda.synchronize()
+    dev_ms = device_ms(lambda: ops.keys_of(*args, **kw), "keys_of_kernel")
     return [_row(
         tag, "keys_of_view", "jaxmc_torch/kernels/csrc/keys.cu",
         "jaxmc/backend/bfs.py:1608", counts["keys_of_view"],
@@ -1109,7 +1117,8 @@ def check_view(eng, got, counts, tag="9 view"):
         cuda_time(lambda: ops.keys_of(*args, **kw)),
         cuda_time(lambda: ops.keys_of_twin(*args, **kw), reps=3),
         N + nv * (W + Vw) * 4 + N * (PW + K) * 4, nv * (W * 6 + Vw),
-        note=f" [N={N} valid={nv} view lanes {Vw} K={K}]")]
+        note=f" [N={N} valid={nv} view lanes {Vw} K={K}; 1 launch, "
+             f"{_device_note(dev_ms)}]")]
 
 
 def _fold(keys):

@@ -43,11 +43,9 @@ _I = ctypes.c_int
 # argtypes of every C entry point: pointers and the stream as c_void_p
 ARGTYPES = {
     "jmc_unpack_rows": [_P] * 8 + [_I64, _I, _I, _P],
-    "jmc_keys_of": [_P] * 14 + [_I64, _I, _I, _I, _I, _I, _P],
+    "jmc_keys_of": [_P] * 15 + [_I64] + [_I] * 9 + [_P],
     "jmc_seen_probe": [_P] * 4 + [_I64, _I64, _I, _I, _P],
-    "jmc_merge_flags": [_P] * 5 + [_I64, _I64, _I, _P],
-    "jmc_merge_compact": [_P] * 6 + [_I64, _I64, _P],
-    "jmc_merge_scatter": [_P] * 7 + [_I64, _I64, _I64, _I, _P],
+    "jmc_merge_sorted": [_P] * 10 + [_I64] * 3 + [_I] * 4 + [_P],
     "jmc_canon_rows": [_P] * 3 + [_I] * 4 + [_P, _I64, _I, _P],
     "jmc_por_max_arms": [],
     "jmc_por_mask": [_P] * 6 + [_I, _I64, _I, _P],
@@ -83,8 +81,7 @@ RESTYPE = {"jmc_hstep_workspace_bytes": _I64,
            "jmc_fullsort_workspace_bytes": _I64}
 ENTRY = {"unpack": ["jmc_unpack_rows"], "keys": ["jmc_keys_of"],
          "probe": ["jmc_seen_probe"],
-         "merge": ["jmc_merge_flags", "jmc_merge_compact",
-                   "jmc_merge_scatter"],
+         "merge": ["jmc_merge_sorted"],
          "canon": ["jmc_canon_rows"],
          "por": ["jmc_por_max_arms", "jmc_por_mask"],
          "hstep": ["jmc_hstep_tile", "jmc_hstep_workspace_bytes",

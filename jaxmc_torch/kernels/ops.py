@@ -23,8 +23,9 @@ too, which is how the kernels are compared with them on the card.
                     probe site counts as seen_probe_por
   merge_sorted  K4  backend/bfs.py _rank_merge after its sort and
                     probe (flags, compaction, rank histogram and
-                    scatter; the two prefix sums stay torch calls);
-                    rank_merge = LSD sort (torch.sort) + K3 + K4
+                    scatter, in two launches with no prefix sum
+                    between them); rank_merge = LSD sort
+                    (torch.sort) + K3 + K4
   canon_rows    K5  compile/symmetry2.py build_canon2 / canon_row
   por_mask      K6  backend/bfs.py _por_mask
   hstep_epilogue K7 backend/bfs.py _hstep_core's masks and reductions
@@ -313,62 +314,193 @@ def keys_of_twin(rows: torch.Tensor, valid: torch.Tensor, pt: dict,
     return torch.cat([vlane[:, None], k], dim=1), packed, pack_ovf
 
 
+# K2's shared memory: what a block aims at (the most a block can have
+# on the card is SMEM_MAX, below)
+KEYS_SMEM = 48 * 1024
+# K2's geometry for each (W, PW, K, bw, kind, budget, fp)
+_KEYS_GEOM: Dict[tuple, Tuple[int, int, int, int]] = {}
+# K2's geometries, best first: (warps a block, rows a warp's tile, listed
+# rows a pass); passes of 64 rows for a stored or raw key basis in exact
+# keys, of 32 where a row's walk is longer (a canonical basis, fp128),
+# as measured on the card (kernel_turns.py GEOMETRIES)
+KEYS_SHAPES = ((8, 128, 32), (4, 128, 32), (2, 128, 32), (1, 128, 32),
+               (1, 64, 32), (1, 32, 32), (1, 32, 16), (1, 32, 8),
+               (1, 32, 4), (1, 32, 2), (1, 32, 1))
+KEYS_SHAPES_64 = ((8, 128, 64),) + KEYS_SHAPES
+
+
+def _pad4(x: int) -> int:
+    return (x + 3) & ~3
+
+
+def keys_smem(W: int, PW: int, K: int, bw: int, kind: int, warps: int,
+              RW: int, P: int) -> int:
+    """K2's shared bytes a block (keys.cu's layout, in words, each part
+    from a 16-byte boundary): the plan (an int4 a lane, then the
+    sentinel codes), then each warp's list of valid rows and flag bytes
+    (RW bytes each), the lanes of P listed rows at stride W | 1 and
+    their basis lanes at stride (W or bw) | 1 when the basis is not the
+    stored row (kind 1 or 2), each with 3 words of room, and the tile's
+    staged key and packed rows with 3 words of room for their 16-byte
+    phase."""
+    bl = 0 if kind == 0 else (bw if kind == 2 else W) | 1
+    warp = (2 * _pad4(-(-RW // 4)) + _pad4(P * (W | 1) + 3)
+            + (_pad4(P * bl + 3) if bl else 0)
+            + _pad4(RW * K + 3) + _pad4(RW * PW + 3))
+    return 4 * (4 * W + _pad4(W) + warps * warp)
+
+
+def keys_geometry(W: int, PW: int, K: int, bw: int, kind: int,
+                  budget=None, fp: bool = False) -> Tuple[int, int, int, int]:
+    """(warps a block, rows a warp's tile RW, listed rows a pass P,
+    shared bytes) of a K2 launch: the first of KEYS_SHAPES_64 (exact
+    keys over the stored row or raw lanes) or KEYS_SHAPES (fp128, a
+    canonical basis) whose shared memory fits `budget` (KEYS_SMEM),
+    else SMEM_MAX; a row too wide for that raises."""
+    if budget is None:
+        budget = KEYS_SMEM
+    shapes = KEYS_SHAPES if kind == 1 or fp else KEYS_SHAPES_64
+    for b in (budget, max(budget, SMEM_MAX - 1024)):
+        for warps, RW, P in shapes:
+            smem = keys_smem(W, PW, K, bw, kind, warps, RW, P)
+            if smem <= b:
+                return warps, RW, P, smem
+    raise ValueError(f"keys_of: a row of {W} lanes (basis {bw}) needs "
+                     f"{keys_smem(W, PW, K, bw, kind, 1, 32, 1)} bytes of "
+                     f"shared memory, more than a block's {SMEM_MAX}")
+
+
+def _a16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+class _ZeroWords:
+    """Device words that are zero between calls, one block for each
+    (device, stream): word 0 is K2's overflow accumulator and done count
+    (two uint32), word 1 K4's ticket, words 2 .. 2 + tiles K4's tile
+    status words.  Each kernel leaves the words it used at zero (K2's
+    last block; K4's last tile and its second launch), so nothing is
+    cleared between calls and a call keeps no state: it can be captured
+    in a CUDA graph and replayed.  A block is made with zeros at its
+    stream's first call, and again, twice as large, when K4 needs more
+    tiles; the old one is kept, since a captured graph may hold its
+    address.  Under capture nothing is made: a stream is warmed by one
+    call first.  K4 holds `lock` while it enqueues its two launches, so
+    calls from several threads on one stream do not interleave them."""
+
+    def __init__(self):
+        self._by_key: Dict[tuple, torch.Tensor] = {}
+        self._old = []
+        self.lock = threading.RLock()
+
+    def take(self, device: torch.device, index: int, tiles: int) -> int:
+        """The block's address for a call on `device` (card `index`) and
+        its current stream with `tiles` status words."""
+        key = (index, _raw_stream(index))
+        ws = self._by_key.get(key)
+        if ws is None or ws.numel() < 2 + tiles:
+            with self.lock:
+                ws = self._grow(device, key, tiles)
+        return ws.data_ptr()
+
+    def _grow(self, device, key, tiles):
+        ws = self._by_key.get(key)
+        if ws is not None and ws.numel() >= 2 + tiles:
+            return ws
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("keys_of / merge_sorted: warm this stream "
+                               "with one call of the same size before "
+                               "capturing it in a CUDA graph (their zero "
+                               "words are made outside capture)")
+        if ws is not None:
+            self._old.append(ws)
+        cap = max(2 + tiles, 2 * ws.numel() if ws is not None else 64)
+        ws = torch.zeros((cap,), dtype=torch.int64, device=device)
+        self._by_key[key] = ws
+        return ws
+
+    def drop(self, index: int) -> None:
+        """Forget the current stream's block (after a failed launch,
+        whose words may not be zero)."""
+        self._by_key.pop((index, _raw_stream(index)), None)
+
+
+_ZERO_WORDS = _ZeroWords()
+
+
 def keys_of(rows: torch.Tensor, valid: torch.Tensor, pt: dict,
             fp_mode: bool, identity: bool, row_ovf: bool = False,
             basis=None, basis_packed: bool = False):
     """K2: (keys [N, K], packed [N, PW], pack_ovf 0-d bool tensor), and
     with row_ovf=True the per-row pack-overflow flags [N] of the stored
     rows as a fourth output (LanePlan.pack_rows reads them; the level
-    step does not).  `basis`/`basis_packed` as in keys_of_twin."""
-    _check(rows, "keys_of.rows", 2)
-    _check(valid, "keys_of.valid", 1, torch.bool)
-    if rows.shape[1] != pt["W"] or valid.shape[0] != rows.shape[0]:
+    step does not).  `basis`/`basis_packed` as in keys_of_twin.  One
+    launch a call, counted under keys_of, keys_of_canon (a packed
+    basis) or keys_of_view (a raw basis); the outputs are views of one
+    allocation, the kernel writes pack_ovf itself.  The checks run
+    once, on a path kept short: at small sizes the host's work is most
+    of a call."""
+    if not (_ok(rows, torch.int32, 2) and _ok(valid, torch.bool, 1)):
+        _check(rows, "keys_of.rows", 2)
+        _check(valid, "keys_of.valid", 1, torch.bool)
+    N, W = rows.shape
+    if W != pt["W"] or valid.shape[0] != N:
         raise ValueError(f"keys_of: rows {tuple(rows.shape)}, valid "
                          f"{tuple(valid.shape)}, plan W={pt['W']}")
     if basis is not None:
-        _check(basis, "keys_of.basis", 2)
-        if basis.shape[0] != rows.shape[0] or (
-                basis_packed and basis.shape[1] != pt["W"]):
+        if not _ok(basis, torch.int32, 2):
+            _check(basis, "keys_of.basis", 2)
+        if basis.shape[0] != N or (basis_packed and basis.shape[1] != W):
             raise ValueError(f"keys_of: basis {tuple(basis.shape)} for "
                              f"rows {tuple(rows.shape)}")
-    if rows.device.type == "cpu":
+    if rows.is_cpu:
         out = keys_of_twin(rows, valid, pt, fp_mode, identity, basis,
                            basis_packed)
         if row_ovf:
             return out + (pack_rows_twin(rows, pt)[1] & valid,)
         return out
-    _same_device("keys_of", rows, valid, pt["word"])
-    from . import build
-    lib = build.library("keys")
-    N, PW = rows.shape[0], pt["PW"]
+    dev = rows.get_device()
+    if not (valid.get_device() == pt["word"].get_device() == dev and
+            (basis is None or basis.get_device() == dev)):
+        _same_device("keys_of", rows, valid, pt["word"],
+                     *(() if basis is None else (basis,)))
+    PW = pt["PW"]
     if basis is None:
         kind, bw, name = 0, PW, "keys_of"
     elif basis_packed:
         kind, bw, name = 1, PW, "keys_of_canon"
     else:
         kind, bw, name = 2, basis.shape[1], "keys_of_view"
-    if basis is not None:
-        _same_device("keys_of", rows, basis)
     K = (4 if fp_mode else bw) + 1
-    keys = torch.empty((N, K), dtype=torch.int32, device=rows.device)
-    packed = torch.empty((N, PW), dtype=torch.int32, device=rows.device)
-    flag = torch.empty((1,), dtype=torch.int32, device=rows.device)
-    rov = torch.empty((N,), dtype=torch.bool, device=rows.device) \
-        if row_ovf else None
-    rc = lib.jmc_keys_of(
-        _ptr(rows), _ptr(valid), _ptr(pt["word"]), _ptr(pt["shift"]),
-        _ptr(pt["mask"]), _ptr(pt["bias"]), _ptr(pt["allowed"]),
-        _ptr(pt["full"]), _ptr(pt["sent_code"]),
-        _ptr(basis) if basis is not None else ctypes.c_void_p(0),
-        _ptr(keys), _ptr(packed), _ptr(flag),
-        _ptr(rov) if rov is not None else ctypes.c_void_p(0),
-        ctypes.c_int64(N), ctypes.c_int(pt["W"]), ctypes.c_int(PW),
-        ctypes.c_int(int(fp_mode)), ctypes.c_int(kind), ctypes.c_int(bw),
-        _stream())
+    gk = (W, PW, K, bw, kind, KEYS_SMEM, bool(fp_mode))
+    geom = _KEYS_GEOM.get(gk)
+    if geom is None:
+        geom = _KEYS_GEOM[gk] = keys_geometry(W, PW, K, bw, kind,
+                                              fp=bool(fp_mode))
+    # keys, packed (each from a 16-byte boundary), the flag, row_ovf
+    nk, npk = N * K * 4, N * PW * 4
+    o_p = _a16(nk)
+    o_f = _a16(o_p + npk)
+    buf = torch.empty((o_f + 1 + (N if row_ovf else 0),), dtype=torch.uint8,
+                      device=rows.device)
+    keys = buf[:nk].view(torch.int32).view(N, K)
+    packed = buf[o_p:o_p + npk].view(torch.int32).view(N, PW)
+    flags = buf[o_f:].view(torch.bool)
+    from . import build
+    rc = build.library("keys").jmc_keys_of(
+        rows.data_ptr(), valid.data_ptr(), pt["word"].data_ptr(),
+        pt["shift"].data_ptr(), pt["mask"].data_ptr(),
+        pt["bias"].data_ptr(), pt["allowed"].data_ptr(),
+        pt["full"].data_ptr(), pt["sent_code"].data_ptr(),
+        basis.data_ptr() if basis is not None else None, keys.data_ptr(),
+        packed.data_ptr(), flags.data_ptr(),
+        flags.data_ptr() + 1 if row_ovf else None,
+        _ZERO_WORDS.take(rows.device, dev, 0), N, W, PW, int(fp_mode),
+        kind, bw, *geom, _raw_stream(dev))
     _launch(name, rc)
     if row_ovf:
-        return keys, packed, flag[0] != 0, rov
-    return keys, packed, flag[0] != 0
+        return keys, packed, flags[0], flags[1:]
+    return keys, packed, flags[0]
 
 
 # ---------------------------------------------------------------------------
@@ -512,53 +644,94 @@ def merge_sorted_twin(seen: torch.Tensor, seen_count: int,
                 seen_count2=new_count + int(seen_count))
 
 
+# K4's output words a block in its second launch (at most; rounded down
+# to a multiple of 32 rows)
+MERGE_OUT_WORDS = 6144
+
+
+def merge_geometry(K: int) -> Tuple[int, int, int]:
+    """(sorted keys a thread, keys a tile, output rows a block) of a K4
+    call at key width K.  Launch 1 stages a tile of 256 * items keys and
+    the key before it, (tile + 1) * K words and 3 of room: items is the
+    largest of 8, 4, 2, 1 that keeps this within 48 KB (1 beyond it, up
+    to SMEM_MAX).  Launch 2's block writes MERGE_OUT_WORDS // K rows
+    (a multiple of 32, at least 32)."""
+    for items in (8, 4, 2, 1):
+        smem = 4 * _pad4((256 * items + 1) * K + 3)
+        if smem <= 48 * 1024:
+            break
+    rows = max(32, MERGE_OUT_WORDS // K // 32 * 32)
+    if max(smem, 4 * (_pad4(rows * K + 3) + rows // 16)) > SMEM_MAX - 1024:
+        raise ValueError(f"merge_sorted: keys of {K} words need more "
+                         f"shared memory than a block's {SMEM_MAX}")
+    return items, 256 * items, rows
+
+
+_MERGE_GEOM: Dict[int, Tuple[int, int, int]] = {}
+
+
 def merge_sorted(seen: torch.Tensor, seen_count: int, skeys: torch.Tensor,
                  sidx: torch.Tensor, found: torch.Tensor,
                  lb: torch.Tensor) -> dict:
-    """K4: merge_sorted_twin's function in three launches, with the two
-    prefix sums as torch.cumsum between them."""
-    _check(seen, "merge_sorted.seen", 2)
-    _check(skeys, "merge_sorted.skeys", 2)
-    _check(sidx, "merge_sorted.sidx", 1)
-    _check(found, "merge_sorted.found", 1, torch.bool)
-    _check(lb, "merge_sorted.lb", 1)
+    """K4: merge_sorted_twin's function in two launches (new flags,
+    look-back and compaction; the merge), nothing between them.  lb is
+    the lower bound of each sorted key (K3's), so nondecreasing.  seen2
+    is one allocation; nk_sidx, the two scalars and the scratch pairs
+    (each new key's sorted position and clamped lower bound) another;
+    the tile words are the zero workspace.  Nothing is read back to the
+    host.  The checks run once, on a path kept short."""
+    if not (_ok(seen, torch.int32, 2) and _ok(skeys, torch.int32, 2) and
+            _ok(sidx, torch.int32, 1) and _ok(found, torch.bool, 1) and
+            _ok(lb, torch.int32, 1)):
+        _check(seen, "merge_sorted.seen", 2)
+        _check(skeys, "merge_sorted.skeys", 2)
+        _check(sidx, "merge_sorted.sidx", 1)
+        _check(found, "merge_sorted.found", 1, torch.bool)
+        _check(lb, "merge_sorted.lb", 1)
     SC, K = seen.shape
     N = skeys.shape[0]
+    count = int(seen_count)
     if skeys.shape[1] != K or not (sidx.shape[0] == found.shape[0]
                                    == lb.shape[0] == N):
         raise ValueError("merge_sorted: shapes disagree")
-    if not 0 <= int(seen_count) <= SC:
+    if not 0 <= count <= SC:
         raise ValueError(f"merge_sorted: count {seen_count} outside "
                          f"[0, {SC}]")
-    if skeys.device.type == "cpu":
-        return merge_sorted_twin(seen, seen_count, skeys, sidx, found, lb)
-    _same_device("merge_sorted", seen, skeys, sidx, found, lb)
+    if skeys.is_cpu:
+        return merge_sorted_twin(seen, count, skeys, sidx, found, lb)
+    dev = skeys.get_device()
+    if not (seen.get_device() == sidx.get_device() == found.get_device()
+            == lb.get_device() == dev):
+        _same_device("merge_sorted", seen, skeys, sidx, found, lb)
+    if SC + N >= 2**31:
+        raise ValueError(f"merge_sorted: {SC} seen rows and {N} keys, "
+                         f"the kernel's positions are int32")
+    geom = _MERGE_GEOM.get(K)
+    if geom is None:
+        geom = _MERGE_GEOM[K] = merge_geometry(K)
+    items, tile, rows = geom
+    tiles = -(-N // tile) if N else 1
+    seen2 = torch.empty((SC, K), dtype=torch.int32, device=skeys.device)
+    # nk_sidx [N], new_count, seen_count2, then the pairs [N] int2 (from
+    # an 8-byte boundary)
+    o_p = N + 2 + (N & 1)
+    aux = torch.empty((o_p + 2 * N,), dtype=torch.int32,
+                      device=skeys.device)
     from . import build
     lib = build.library("merge")
-    dev = skeys.device
-    flags = torch.empty((N,), dtype=torch.int32, device=dev)
-    nk_sidx = torch.empty((N,), dtype=torch.int32, device=dev)
-    hist = torch.empty((SC + 1,), dtype=torch.int32, device=dev)
-    seen2 = torch.empty((SC, K), dtype=torch.int32, device=dev)
-    rc = lib.jmc_merge_flags(
-        _ptr(skeys), _ptr(found), _ptr(flags), _ptr(nk_sidx), _ptr(hist),
-        ctypes.c_int64(N), ctypes.c_int64(SC), ctypes.c_int(K), _stream())
-    _launch("rank_merge", rc)
-    npos = torch.cumsum(flags, 0, dtype=torch.int32)
-    rc = lib.jmc_merge_compact(
-        _ptr(flags), _ptr(npos), _ptr(sidx), _ptr(lb), _ptr(nk_sidx),
-        _ptr(hist), ctypes.c_int64(N), ctypes.c_int64(SC), _stream())
-    _launch("rank_merge", rc)
-    ranks = torch.cumsum(hist, 0, dtype=torch.int32)
-    rc = lib.jmc_merge_scatter(
-        _ptr(seen), _ptr(skeys), _ptr(flags), _ptr(npos), _ptr(lb),
-        _ptr(ranks), _ptr(seen2), ctypes.c_int64(int(seen_count)),
-        ctypes.c_int64(N), ctypes.c_int64(SC), ctypes.c_int(K), _stream())
-    _launch("rank_merge", rc)
-    new_count = npos[-1] if N else torch.zeros((), dtype=torch.int32,
-                                               device=dev)
-    return dict(new_count=new_count, nk_sidx=nk_sidx, seen2=seen2,
-                seen_count2=new_count + int(seen_count))
+    with _ZERO_WORDS.lock:
+        rc = lib.jmc_merge_sorted(
+            seen.data_ptr(), skeys.data_ptr(), sidx.data_ptr(),
+            found.data_ptr(), lb.data_ptr(), seen2.data_ptr(),
+            aux.data_ptr(), aux.data_ptr() + 4 * o_p,
+            aux.data_ptr() + 4 * N,
+            _ZERO_WORDS.take(skeys.device, dev, tiles), count, N, SC, K,
+            items, rows, tiles, _raw_stream(dev))
+        if rc != 0:
+            _ZERO_WORDS.drop(dev)
+    _launch("rank_merge", rc, 2)
+    return dict(new_count=aux[N], nk_sidx=aux[:N], seen2=seen2,
+                seen_count2=aux[N + 1])
 
 
 def rank_merge_twin(seen: torch.Tensor, seen_count: int,

@@ -19,6 +19,12 @@ import shutil
 import numpy as np
 import pytest
 import torch
+from keys_cases import PATTERNS as KEYS_PATTERNS
+from keys_cases import keys_case
+from keys_cases import plan as keys_plan
+from keys_cases import plan_tensors as keys_plan_tensors
+from merge_cases import KINDS as MERGE_KINDS
+from merge_cases import merge_case
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPECS = os.path.join(ROOT, "specs")
@@ -241,6 +247,235 @@ def test_seen_probe_replays_in_a_cuda_graph(card):
     ft, lbt = ops.seen_probe_twin(seen, sc, keys)
     _eq(f, ft)
     _eq(lb, lbt)
+
+
+MERGE_OUT = ("new_count", "nk_sidx", "seen2", "seen_count2")
+
+
+def _k4_inputs(kind, K, N, seed, device):
+    """K4's inputs from merge_cases: the sorted keys, their original
+    indices and their probe (K3's twin), and the unsorted keys."""
+    from jaxmc_torch.kernels import ops
+    seen, count, keys = merge_case(kind, K, N, seed)
+    seen = torch.as_tensor(seen, device=device)
+    keys = torch.as_tensor(keys, device=device)
+    perm = ops.lsd_sort(keys)
+    skeys = keys[perm].contiguous()
+    found, lb = ops.seen_probe_twin(seen, count, skeys)
+    return (seen, count, skeys, perm.to(torch.int32), found.contiguous(),
+            lb.contiguous()), keys
+
+
+@pytest.mark.parametrize("K", [2, 3, 5, 9])
+@pytest.mark.parametrize("kind", MERGE_KINDS)
+def test_merge_sorted_two_launches_match_twin(card, kind, K):
+    """K4 on every kind of merge_cases (N 0, an empty table, no new key,
+    every key new, runs across tiles, new keys at lb = count, rows past
+    SC dropped, small and full-range words), twice in a row on one
+    workspace, two launches a call; the whole rank merge beside it."""
+    from jaxmc_torch.kernels import ops
+    N = 655360 + 77 if kind in ("runs", "past", "full") else 5003
+    args, keys = _k4_inputs(kind, K, N, 11, card)
+    want = ops.merge_sorted_twin(*args)
+    for _ in range(2):
+        ops.reset_launches()
+        got = ops.merge_sorted(*args)
+        assert ops.LAUNCHES["rank_merge"] == 2 and \
+            sum(ops.LAUNCHES.values()) == 2, ops.LAUNCHES
+        torch.cuda.synchronize()
+        for name in MERGE_OUT:
+            _eq(got[name], want[name])
+    rk = ops.rank_merge(args[0], args[1], keys)
+    rt = ops.rank_merge_twin(args[0], args[1], keys)
+    torch.cuda.synchronize()
+    for name in MERGE_OUT:
+        _eq(rk[name], rt[name])
+
+
+def _k2_call(f, case, basis, fp, row_ovf=False):
+    p, rows, valid, other, pt, bw = case
+    dev = pt["word"].device
+    r = torch.as_tensor(rows, device=dev)
+    v = torch.as_tensor(valid, device=dev)
+    kw = {}
+    if basis == "canon":
+        kw = dict(basis=torch.as_tensor(other, device=dev), basis_packed=True)
+    elif basis == "view":
+        kw = dict(basis=torch.as_tensor(
+            np.ascontiguousarray(other[:, :bw]), device=dev))
+    if row_ovf:
+        return f(r, v, pt, fp, False, row_ovf=True, **kw)
+    return f(r, v, pt, fp, False, **kw)
+
+
+def _k2_case(W, pattern, n, seed, device, basis="stored", fp=False,
+             bad=False):
+    from jaxmc_torch.kernels import ops
+    p = keys_plan(W, seed)
+    bw = min(W, 3 + seed % 3)
+    kind = {"stored": 0, "canon": 1, "view": 2}[basis]
+    K = (4 if fp else (bw if kind == 2 else p["PW"])) + 1
+    T = ops.keys_geometry(W, p["PW"], K, bw if kind == 2 else p["PW"],
+                          kind, fp=fp)[1]
+    p, rows, valid, other = keys_case(W, n, pattern, T, seed, bad=bad)
+    return p, rows, valid, other, keys_plan_tensors(p, device), bw
+
+
+@pytest.mark.parametrize("fp", [False, True])
+@pytest.mark.parametrize("basis", ["stored", "canon", "view"])
+@pytest.mark.parametrize("W", [1, 7, 26, 138])
+def test_keys_of_tiles_match_twin(card, W, basis, fp):
+    """K2 on synthetic plans of W lanes (odd PW among them) in every
+    basis: no valid row, all valid, valid rows only at tile edges, 18%
+    and half valid, a guarded lane out of range in the rows and in the
+    canonical basis; twice in a row, one launch a call; the per-row
+    flags of LanePlan.pack_rows."""
+    from jaxmc_torch.kernels import ops
+    name = {"stored": "keys_of", "canon": "keys_of_canon",
+            "view": "keys_of_view"}[basis]
+    for pattern in KEYS_PATTERNS:
+        for bad in (False, True):
+            case = _k2_case(W, pattern, 20000 + W, W + len(pattern), card,
+                            basis, fp, bad)
+            want = _k2_call(ops.keys_of_twin, case, basis, fp)
+            for _ in range(2):
+                ops.reset_launches()
+                got = _k2_call(ops.keys_of, case, basis, fp)
+                assert ops.LAUNCHES[name] == 1 and \
+                    sum(ops.LAUNCHES.values()) == 1, ops.LAUNCHES
+                torch.cuda.synchronize()
+                assert got[2].dim() == 0 and got[2].dtype == torch.bool
+                for a, b in zip(got, want):
+                    _eq(a, b)
+            if bad and case[2].any():
+                assert bool(got[2])
+            if basis == "stored" and not fp:
+                got = _k2_call(ops.keys_of, case, basis, fp, row_ovf=True)
+                r = torch.as_tensor(case[1], device=card)
+                v = torch.as_tensor(case[2], device=card)
+                _eq(got[3], ops.pack_rows_twin(r, case[4])[1] & v)
+
+
+def test_keys_of_and_merge_sorted_replay_in_a_cuda_graph(card):
+    """K2 and K4 keep no state between calls: captured once (after a
+    warm call on the capture stream), each replays to the twins' results
+    on two input sets copied into the captured inputs."""
+    from jaxmc_torch.kernels import ops
+    sets = [_k4_inputs("full", 3, 300000, seed, card)[0] for seed in (1, 2)]
+    assert all(a.shape == b.shape for a, b in zip(sets[0], sets[1])
+               if isinstance(a, torch.Tensor)) and sets[0][1] == sets[1][1]
+    # two row sets (rows of another seed's plan may leave this plan's
+    # ranges: the flag is compared too)
+    k2 = [_k2_case(26, "sparse", 50000, seed, card, "canon", True)
+          for seed in (3, 4)]
+    c = k2[0]
+    r = torch.as_tensor(c[1], device=card)
+    v = torch.as_tensor(c[2], device=card)
+    b = torch.as_tensor(c[3], device=card)
+    args = [x.clone() if isinstance(x, torch.Tensor) else x
+            for x in sets[0]]
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        ops.keys_of(r, v, c[4], True, False, basis=b, basis_packed=True)
+        ops.merge_sorted(*args)
+    s.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=s):
+        got2 = ops.keys_of(r, v, c[4], True, False, basis=b,
+                           basis_packed=True)
+        got4 = ops.merge_sorted(*args)
+    for i in (1, 0, 1):
+        ci = k2[i]
+        r.copy_(torch.as_tensor(ci[1], device=card))
+        v.copy_(torch.as_tensor(ci[2], device=card))
+        b.copy_(torch.as_tensor(ci[3], device=card))
+        for dst, src in zip(args, sets[i]):
+            if isinstance(dst, torch.Tensor):
+                dst.copy_(src)
+        g.replay()
+        torch.cuda.synchronize()
+        for x, y in zip(got2, ops.keys_of_twin(r, v, c[4], True, False,
+                                               basis=b, basis_packed=True)):
+            _eq(x, y)
+        want = ops.merge_sorted_twin(*sets[i])
+        for name in MERGE_OUT:
+            _eq(got4[name], want[name])
+
+
+@pytest.mark.parametrize("streams", ["one", "two"])
+def test_keys_of_and_merge_sorted_from_two_threads(card, streams):
+    """K2 and K4 from two host threads at once, on one stream or on a
+    stream each: every call equals its twin (K4's two launches stay
+    together on a stream; another stream has zero words of its own)."""
+    import threading
+    from jaxmc_torch.kernels import ops
+    k4 = [_k4_inputs(kind, 3, 200000, 5, card)[0]
+          for kind in ("full", "small")]
+    k2 = [_k2_case(7, "sparse", 100000, seed, card, "stored", seed == 1,
+                   bad=seed == 1) for seed in (1, 2)]
+    want4 = [ops.merge_sorted_twin(*a) for a in k4]
+    want2 = [_k2_call(ops.keys_of_twin, c, "stored", t == 0)
+             for t, c in enumerate(k2)]
+    torch.cuda.synchronize()
+    got, errors = [[], []], []
+
+    def run(t):
+        try:
+            s = torch.cuda.Stream() if streams == "two" \
+                else torch.cuda.default_stream()
+            with torch.cuda.stream(s):
+                for _ in range(30):
+                    got[t].append((ops.merge_sorted(*k4[t]),
+                                   _k2_call(ops.keys_of, k2[t], "stored",
+                                            t == 0)))
+            s.synchronize()
+        except Exception as e:     # raised again in the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(t,)) for t in (0, 1)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    torch.cuda.synchronize()
+    if errors:
+        raise errors[0]
+    for t in (0, 1):
+        assert len(got[t]) == 30
+        for g4, g2 in got[t]:
+            for name in MERGE_OUT:
+                _eq(g4[name], want4[t][name])
+            for a, b in zip(g2, want2[t]):
+                _eq(a, b)
+
+
+def test_keys_of_and_merge_sorted_raise_on_a_refused_launch(card,
+                                                            monkeypatch):
+    """A launch the card refuses (too much shared memory for K2, a tile
+    K4 does not take) raises and counts nothing; the next call, with
+    the geometry restored, equals the twin."""
+    from jaxmc_torch.kernels import ops
+    case = _k2_case(7, "half", 5000, 1, card)
+    args, _keys = _k4_inputs("full", 3, 5000, 1, card)
+    ops.reset_launches()
+    monkeypatch.setattr(ops, "_KEYS_GEOM", {})
+    monkeypatch.setattr(ops, "keys_geometry",
+                        lambda *a, **k: (8, 128, 32, 300000))
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        _k2_call(ops.keys_of, case, "stored", False)
+    monkeypatch.setattr(ops, "_MERGE_GEOM", {})
+    monkeypatch.setattr(ops, "merge_geometry", lambda K: (3, 768, 64))
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        ops.merge_sorted(*args)
+    assert not any(ops.LAUNCHES.values()), ops.LAUNCHES
+    monkeypatch.undo()
+    for a, b in zip(_k2_call(ops.keys_of, case, "stored", False),
+                    _k2_call(ops.keys_of_twin, case, "stored", False)):
+        _eq(a, b)
+    got, want = ops.merge_sorted(*args), ops.merge_sorted_twin(*args)
+    torch.cuda.synchronize()
+    for name in MERGE_OUT:
+        _eq(got[name], want[name])
 
 
 @pytest.mark.parametrize("seen_mode", ["auto", "fingerprint"])
