@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Smoke run of the torch port on one CUDA card: builds the fourteen
-hand-written kernels, the generated transition kernels of every engine
-(K15-K17: CUDA C++ that compile/cgen.py writes per model) and the
-native fingerprint store, holds each kernel against its plain PyTorch
-twin at the shapes the engines give it, times both, and checks models
-end to end through the port's entry
-points: the level engine, the chunked host-seen engine, the resident
+"""Smoke run of the torch port on one CUDA card: builds the fifteen
+hand-written kernels (K1-K14, K18), the generated transition kernels
+of every engine (K15-K17: CUDA C++ that compile/cgen.py writes per
+model) and the native fingerprint store, holds each kernel against its
+plain PyTorch twin at the shapes the engines give it, times both, and
+checks models end to end through the port's entry points: the level
+engine, the chunked host-seen engine, the resident
 engine, the out-of-core seen tiers, temporal and refinement PROPERTYs,
 cross-model batching, checkpoints, resume and drain, the full-sort
 level step, the telemetry artifacts, the profiler and the backend
@@ -24,7 +24,11 @@ Phases (any failure raises; the exit code is then not 0):
   3 kernels    capture the widest level's inputs of transfer_scaled on
                the card; each kernel against its twin, bit-exact; times;
                K15 gen_expand against the emitter over the widest
-               level's frontier block
+               level's frontier block; K18 sort_keys on the widest
+               merge's candidate keys and on their fp128 keys (rows
+               "sort_keys", "sort_keys_fp128") and its front_order site
+               on the widest next-frontier order (row "front_order"),
+               beside the torch.sort chain and torch.sort(key4)
   4 main path  transfer_scaled (153,701 distinct / 311,153 generated /
                diameter 9) with every launch counter reset just before
                and read just after: each kernel must have run
@@ -35,8 +39,8 @@ Phases (any failure raises; the exit code is then not 0):
                (jaxmc_torch/fixtures/transfer_scaled_4p.cfg): kernels
                against the twins on the card, counts equal; then each
                kernel against its twin again, and timed, at this
-               model's widest level (rows named "...@4p", K15 among
-               them)
+               model's widest level (rows named "...@4p", K15 and K18
+               among them)
   8 symmetry   symtoy_scaled with 4 processes, MaxTurns 60 (fixtures/
                symtoy_scaled_4p.cfg, 23 permutations) on kernels and
                twins, counts equal to the reference's; K5 canon_rows and
@@ -45,13 +49,15 @@ Phases (any failure raises; the exit code is then not 0):
                (every container kind of the canonicaliser; W 138 takes
                blocks of 32 rows) and again with blocks of 3 rows (a
                smaller shared memory budget); K15 against the emitter
-               at the widest frontier (row "gen_expand@sym")
+               at the widest frontier (row "gen_expand@sym"); K18 on
+               the widest merge's keys (row "sort_keys@sym")
   9 view       viewtoy_scaled at N 512 (fixtures/viewtoy_scaled_big.cfg)
                on kernels and twins, counts equal to the formula's pins;
                K2's view branch against its twin and timed; K16 (the
                invariant) and K17 (the VIEW) against the emitter on the
                largest blocks they were given (rows "gen_pred@view",
-               "gen_value@view")
+               "gen_value@view"); K18 on the widest merge's keys (row
+               "sort_keys@view")
  10 por        msgstoy with 4 processes, T 10 (fixtures/msgstoy_
                scaled.cfg) with --por on kernels and twins: counts and
                por.* counters equal to the reference's; K6 por_mask and
@@ -133,8 +139,10 @@ Phases (any failure raises; the exit code is then not 0):
                engine's completed checkpoint replayed with no kernel
                launch; each engine's checkpoint write wall and file size
  20 full sort  the 4-process model with JAXMC_LEVEL_RANKMERGE=0 on the
-               kernels (K11 launched, K4 not) and on the twins: phase
-               7's counts, wall, peak memory; at its widest level K11
+               kernels (K11 and K18 launched, K4 not) and on the twins:
+               phase 7's counts, wall, peak memory; at its widest level
+               K18 on the seen table and candidates (60,817,408 rows,
+               row "sort_keys@fullsort") and K11
                against its twin, bit-exact, timed by events and device
                time with L2 written over before each call, beside its
                byte bound and torch.nonzero + index_select, and the
@@ -152,9 +160,11 @@ Phases (any failure raises; the exit code is then not 0):
                site's dispatches, wall and share of the search wall, the
                dominant site, model against measured memory; `obs report`
                and `obs top`; --profile=xla's torch.profiler trace; K12
-               oracle_probe launched twice in each gpu probe process (the
-               count the probe reports, from --smoke and from the
-               profiled auto run, whose count is the row's) and held
+               oracle_probe launched twice and K18 36 times in each gpu
+               probe process (the counts the probe reports, from --smoke
+               and from the profiled auto run, whose counts are the
+               rows'); K18 on the probe's keys (row "sort_keys@oracle")
+               and K12 held
                against its twin, bit-exact, timed with L2 written over
                before each call beside its bound and searchsorted +
                index_copy_ + two sums (row "oracle_probe")
@@ -242,8 +252,8 @@ L2_FLUSH_BYTES = 256 << 20
 
 PINS = (153701, 311153, 9)     # jaxmc/corpus.py transfer_scaled pins
 # the kernels a search without SYMMETRY, VIEW or --por launches
-MAIN_KERNELS = ("unpack_rows", "keys_of", "seen_probe", "rank_merge",
-                "gen_expand", "gen_pred")
+MAIN_KERNELS = ("unpack_rows", "keys_of", "sort_keys", "seen_probe",
+                "rank_merge", "front_order", "gen_expand", "gen_pred")
 DEVICE = "cuda"
 FIXTURES = os.path.join(ROOT, "jaxmc_torch", "fixtures")
 CFG_4P = os.path.join(FIXTURES, "transfer_scaled_4p.cfg")
@@ -271,11 +281,12 @@ POR_PINS_HS = {"por.ample_states": 1807106, "por.full_states": 1207635,
                "por.device_masked_arms": 1642412}
 # the kernels a host-seen search launches, and those it must not
 HS_KERNELS = ("unpack_rows", "keys_of", "hstep_epilogue", "gen_expand")
-HS_ABSENT = ("seen_probe", "seen_probe_por", "rank_merge", "por_mask")
+HS_ABSENT = ("seen_probe", "seen_probe_por", "rank_merge", "por_mask",
+             "sort_keys", "front_order")
 # the resident phases' chunk, and the kernels a resident search launches
 CHUNK_RES = 65536
-RES_KERNELS = ("unpack_rows", "keys_of", "seen_probe", "rank_merge",
-               "resident_compact", "resident_compact_explore",
+RES_KERNELS = ("unpack_rows", "keys_of", "sort_keys", "seen_probe",
+               "rank_merge", "resident_compact", "resident_compact_explore",
                "resident_fold", "gen_expand")
 # the CPU formula's starting caps (TorchExplorer._res_start_caps), given
 # to the card and the CPU alike where their runs are compared line by
@@ -317,8 +328,9 @@ OBS_DIR = os.path.join(ROOT, "jaxmc_torch", "kernels", "_build", "obs")
 # a2a exchange and the rank merge launches, and the gitignored directory
 # of its checkpoint and cfg (removed after)
 MESH_D = 4
-MESH_KERNELS = ("unpack_rows", "keys_of", "seen_probe", "rank_merge",
-                "resident_compact_mesh_block", "resident_compact_mesh_vc",
+MESH_KERNELS = ("unpack_rows", "keys_of", "sort_keys", "seen_probe",
+                "rank_merge", "resident_compact_mesh_block",
+                "resident_compact_mesh_vc",
                 "resident_compact_mesh_front", "mesh_route", "mesh_scalars",
                 "gen_expand")
 MESH_DIR = os.path.join(ROOT, "jaxmc_torch", "kernels", "_build", "mesh")
@@ -556,6 +568,14 @@ def capture_busiest_level(cfg, want):
                 got["merge"] = (seen.clone(), seen_count, keys.clone())
             return super()._rank_merge(seen, seen_count, keys)
 
+        def _front_order(self, explore, prov, FC):
+            # the widest block, and in it the most explored rows
+            n = (explore.numel(), int(explore.sum()))
+            if n > got.get("front_n", (-1, -1)):
+                got["front_n"] = n
+                got["front"] = (explore.clone(), prov.clone(), FC)
+            return super()._front_order(explore, prov, FC)
+
         def level_step(self, seen, seen_count, frontier_p, fcount):
             # the whole step's inputs at the widest level (B.1, B.7)
             if fcount > got.get("step_n", -1):
@@ -700,7 +720,7 @@ def phase_kernels(eng, got, tag="3 kernels", suffix=""):
     seen, seen_count, keys = got["merge"]
     N, K = keys.shape
     SC = seen.shape[0]
-    skeys = keys[ops.lsd_sort(keys)].contiguous()
+    skeys, sidx = ops.sort_keys(keys)
     k = ops.seen_probe(seen, seen_count, skeys)
     t = ops.seen_probe_twin(seen, seen_count, skeys)
     torch.cuda.synchronize()
@@ -735,8 +755,7 @@ def phase_kernels(eng, got, tag="3 kernels", suffix=""):
                 f"{_device_note(dev_ms)}]")
 
     # K4 merge_sorted on the sorted keys and their probe; the whole
-    # rank_merge (LSD sort + K3 + K4) is timed beside it for reference
-    sidx = ops.lsd_sort(keys).to(torch.int32)
+    # rank_merge (K18 + K3 + K4) is timed beside it for reference
     found, lb = ops.seen_probe(seen, seen_count, skeys)
     names = ("new_count", "nk_sidx", "seen2", "seen_count2")
     k = ops.merge_sorted(seen, seen_count, skeys, sidx, found, lb)
@@ -765,13 +784,117 @@ def phase_kernels(eng, got, tag="3 kernels", suffix=""):
            N * (K + 6),
            note=f" [N={N} seen_count={seen_count} SC={SC} K={K} "
                 f"new={new}; 2 launches, {_device_note(dev_ms)}; "
-                f"whole rank_merge (sort + K3 + K4) {whole_ms:.4f} ms]")
+                f"whole rank_merge (K18 + K3 + K4) {whole_ms:.4f} ms]")
+
+    # K18 on the merge's candidate keys, and (at transfer_scaled) on the
+    # fp128 keys of the same candidate block; its front_order site
+    rows_out.append(check_sort(keys, 0, tag, "sort_keys" + suffix))
+    if not suffix:
+        rows, valid = got["keys"]
+        kf = ops.keys_of(rows, valid, pt, True, False)[0]
+        rows_out.append(check_sort(kf, 0, tag, "sort_keys_fp128"))
+        del kf
+    explore, prov, FC = got["front"]
+    rows_out.append(check_front_order(explore, prov, eng.A, FC, 0, tag,
+                                      "front_order" + suffix))
 
     # K15 gen_expand over the widest level's frontier block (B.1)
     _seen, _sc, frontier_p, _fc = got["step"]
     rows_out.append(check_gen_expand(eng, eng._unpack(frontier_p), 0, tag,
                                      "gen_expand" + suffix))
     return rows_out
+
+
+def _peak_of(fn):
+    """The call's allocation above what was live before it, in bytes."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    del out
+    return torch.cuda.max_memory_allocated() - base
+
+
+def check_sort(keys, launches, tag, name):
+    """K18 on `keys` twice in a row, each call bit for bit against its
+    twin; timed by events (L2 written over before each call) and device
+    time, beside its byte bound (each key word read once, the sorted
+    words and indices written once), the twin and the torch.sort chain
+    that the port ran before K18 (lsd_sort and one gather); each call's
+    memory above the live tensors."""
+    from jaxmc_torch.kernels import ops
+    N, K = keys.shape
+    want = ops.sort_keys_twin(keys)
+    ks = [ops.sort_keys(keys) for _ in range(2)]
+    torch.cuda.synchronize()
+    err = max(_max_abs(list(k), list(want)) for k in ks)
+    del ks, want
+
+    def chain():
+        perm = ops.lsd_sort(keys)
+        return keys[perm].contiguous(), perm.to(torch.int32)
+    if _max_abs(list(chain()), list(ops.sort_keys(keys))):
+        raise AssertionError(f"{name}: the torch.sort chain disagrees")
+    # K18's tail key: the last row's
+    tail = int((keys == keys[-1]).all(dim=1).sum()) if N else 0
+    big = N * K > 1 << 26
+    dev_ms = device_ms(lambda: ops.sort_keys(keys), "sort_", flush=True)
+    peak, peak_chain = _peak_of(lambda: ops.sort_keys(keys)), \
+        _peak_of(chain)
+    return _row(
+        tag, name, "jaxmc_torch/kernels/csrc/sort.cu",
+        "jaxmc/backend/bfs.py:178", launches, err,
+        cuda_time(lambda: ops.sort_keys(keys), reps=5 if big else 20,
+                  flush=True),
+        cuda_time(lambda: ops.sort_keys_twin(keys), reps=2, warm=1,
+                  flush=True),
+        N * (2 * K + 1) * 4, 0,
+        library_ms=cuda_time(chain, reps=3 if big else 10, warm=1,
+                             flush=True),
+        note=f" [N={N} K={K} tail rows {tail}; {4 * K + 2} launches a "
+             f"call, bit-equal to the twin twice in a row; L2 flushed "
+             f"before each call; {_device_note(dev_ms)}; memory a call "
+             f"{peak / 2**20:.1f} MiB, the chain's {peak_chain / 2**20:.1f} "
+             f"MiB; library: the torch.sort chain]")
+
+
+def check_front_order(explore, prov, A, FC, launches, tag, name):
+    """K18's front_order site on the level step's explore flags and
+    provenance, twice in a row against its twin, timed beside its byte
+    bound (the flags and provenance read, the order written), the twin
+    and torch.sort(key4, stable=True) on a key built outside the timed
+    calls."""
+    from jaxmc_torch.kernels import ops
+    C = explore.shape[0]
+    want = ops.front_order_twin(explore, prov, A, FC)
+    ks = [ops.front_order(explore, prov, A, FC) for _ in range(2)]
+    torch.cuda.synchronize()
+    err = max(_max_abs(k, want) for k in ks)
+    fmaj = (prov % FC) * max(A, 1) + torch.div(prov, FC,
+                                               rounding_mode="floor")
+    key4 = (~explore).to(torch.int64) * (1 << 40) + fmaj
+
+    def library():
+        return torch.sort(key4, stable=True).indices
+    if _max_abs(library(), want):
+        raise AssertionError(f"{name}: torch.sort(key4) disagrees")
+    b = max(C - 1, 0).bit_length()
+    dev_ms = device_ms(lambda: ops.front_order(explore, prov, A, FC),
+                       "sort_", flush=True)
+    return _row(
+        tag, name, "jaxmc_torch/kernels/csrc/sort.cu",
+        "jaxmc/backend/bfs.py:1879", launches, err,
+        cuda_time(lambda: ops.front_order(explore, prov, A, FC),
+                  flush=True),
+        cuda_time(lambda: ops.front_order_twin(explore, prov, A, FC),
+                  reps=3, flush=True),
+        C * 13, 0, library_ms=cuda_time(library, flush=True),
+        note=f" [C={C} A={A} FC={FC} explored {int(explore.sum())}, "
+             f"provenance > 0 {int((prov != 0).sum())}; {b // 8 + 3} "
+             f"launches a call "
+             f"(b = {b}); L2 flushed before each call; "
+             f"{_device_note(dev_ms)}; library: torch.sort(key4)]")
 
 
 def phase_torch_bounds(eng, got, tag="7 bounds"):
@@ -914,7 +1037,7 @@ def phase_real_size():
 # ---------------------------------------------------------------------------
 
 def capturing_engine(spec, cfg, **kw):
-    """A TorchExplorer that keeps, for each of K5, K2 and K3+K6, the
+    """A TorchExplorer that keeps, for each of K5, K2, K3+K6 and K18, the
     inputs of the level that gave it the most valid rows (clones only:
     no kernel launches and no counts of their own)."""
     from jaxmc_torch.backend.bfs import TorchExplorer
@@ -940,6 +1063,10 @@ def capturing_engine(spec, cfg, **kw):
             keep("por", int(cvalid.sum()), seen, seen_count, ckeys, cvalid,
                  FC)
             return super()._por_filter(seen, seen_count, ckeys, cvalid, FC)
+
+        def _rank_merge(self, seen, seen_count, keys):
+            keep("merge", int((keys[:, 0] == 0).sum()), keys)
+            return super()._rank_merge(seen, seen_count, keys)
 
         def _expand(self, frontier):
             keep("expand", frontier.shape[0], frontier)
@@ -1388,9 +1515,9 @@ def phase_hybrid():
 
 def resident_engine(spec, cfg, capture=None, **kw):
     """A resident TorchExplorer at CHUNK_RES; with `capture` (a dict) it
-    keeps the inputs of K8 (both sites) and K9 at the chunk and level
-    with the most valid candidates (this reads counts back, so only the
-    twin run captures)."""
+    keeps the inputs of K8 (both sites), K9 and K18 at the chunk and
+    level with the most valid candidates (this reads counts back, so
+    only the twin run captures)."""
     from jaxmc_torch.backend.bfs import TorchExplorer
     from jaxmc_torch.session import load_model
 
@@ -1415,6 +1542,10 @@ def resident_engine(spec, cfg, capture=None, **kw):
                  base, lv["CH"])
             return super()._fold(lv, part, pack_ovf, por, keys_c, rows_c,
                                  base)
+
+        def _sort_keys(self, keys):
+            keep("sort", int((keys[:, 0] == 0).sum()), keys)
+            return super()._sort_keys(keys)
 
     cls = Capture if capture is not None else TorchExplorer
     kw.setdefault("chunk", CHUNK_RES)
@@ -1509,9 +1640,10 @@ def k8_twice(call, twin):
 
 
 def check_resident(captured, launches, tag="14 resident"):
-    """K8 at both sites and K9 against their twins, bit for bit, on the
-    captured inputs; timed beside the twins, their byte bounds and, for
-    K8, torch.nonzero doing the same capped compaction."""
+    """K8 at both sites, K9 and K18 against their twins, bit for bit, on
+    the captured inputs; timed beside the twins, their byte bounds and,
+    for K8, torch.nonzero doing the same capped compaction (K18: the
+    torch.sort chain)."""
     from jaxmc_torch.compile.kernel2 import OV_PACK
     from jaxmc_torch.kernels import ops
     rows = []
@@ -1586,6 +1718,8 @@ def check_resident(captured, launches, tag="14 resident"):
              f"{device_ms(lambda: run(ops.resident_fold), 'fold_'):.4f} ms "
              f"(the carry copy apart); library null: no PyTorch call "
              f"appends a block guarded by a device flag]"))
+    rows.append(check_sort(captured["sort"][0], launches["sort_keys"], tag,
+                           "sort_keys@res"))
     return rows
 
 
@@ -2277,11 +2411,12 @@ def phase_durability(pins_4p, tag="19 durability"):
 
 def phase_full_sort(pins_4p, tag="20 full sort"):
     """The 4-process model with JAXMC_LEVEL_RANKMERGE=0 on the kernels
-    (K11 launched, K4 not) and on the twins, counts equal to phase 7's;
-    then, at its widest level, K11 against its twin, timed with L2
-    written over before each call, beside its byte bound and the
+    (K11 and K18 launched, K4 not) and on the twins, counts equal to
+    phase 7's; then, at its widest level, K18 on the seen table and the
+    candidates and K11 on its output, each against its twin, timed with
+    L2 written over before each call, beside its byte bound and the
     library sequence, and the whole full-sort step against the rank
-    step.  Returns K11's table row."""
+    step.  Returns K11's and K18's table rows."""
     from jaxmc_torch.backend.bfs import TorchExplorer
     from jaxmc_torch.kernels import ops
     from jaxmc_torch.session import load_model
@@ -2315,11 +2450,14 @@ def phase_full_sort(pins_4p, tag="20 full sort"):
             if twins and any(counts.values()):
                 raise AssertionError(f"{tag}: twin run launched kernels")
             if not twins:
-                if counts["fullsort_dedup"] <= 0 or counts["rank_merge"] \
-                        or counts["gen_expand"] <= 0:
-                    raise AssertionError(f"{tag}: K11 or K15 not launched "
-                                         f"or K4 launched: {counts}")
+                if min(counts[k] for k in ("fullsort_dedup", "gen_expand",
+                                           "sort_keys", "front_order")) \
+                        <= 0 or counts["rank_merge"]:
+                    raise AssertionError(f"{tag}: K11, K15 or K18 not "
+                                         f"launched or K4 launched: "
+                                         f"{counts}")
                 launches, keng = counts["fullsort_dedup"], eng
+                sort_launches = counts["sort_keys"]
         # the widest level: the step's merge inputs rebuilt as _full_sort
         # builds them
         seen, seen_count, frontier_p, fcount = got["step"]
@@ -2348,9 +2486,8 @@ def phase_full_sort(pins_4p, tag="20 full sort"):
         SC, K = seen.shape
         allk = torch.cat([seen, keys])
         allk[seen_count:SC, 0] = 2**31 - 1
-        perm = ops.lsd_sort(allk)
-        skeys = allk[perm].contiguous()
-        perm = perm.to(torch.int32)
+        sort_row = check_sort(allk, sort_launches, tag, "sort_keys@fullsort")
+        skeys, perm = ops.sort_keys(allk)
         sflag = (perm >= SC).to(torch.int32)
         del allk, keys
         N = SC + C
@@ -2410,7 +2547,7 @@ def phase_full_sort(pins_4p, tag="20 full sort"):
                  f"before each call; device time {dev_ms:.4f} ms; whole "
                  f"step full sort {step_full:.2f} ms, rank "
                  f"{step_rank:.2f} ms; peak {peak / 2**30:.2f} GiB]")
-        return row
+        return [row, sort_row]
     finally:
         os.environ.pop("JAXMC_LEVEL_RANKMERGE", None)
 
@@ -2471,9 +2608,9 @@ def phase_obs(smi, tag="21 obs"):
     env block), the same run without --profile (same counts and trace),
     the 4-process model profiled (the per-site table), `report` and
     `top`, --profile=xla's trace directory, the oracle's --smoke, and
-    K12 against its twin: bit-exact, timed with L2 written over before
-    each call, beside its bound and the library sequence.  Returns
-    K12's table row."""
+    K18 and K12 on the probe's keys against their twins: bit-exact,
+    timed with L2 written over before each call, beside their bounds
+    and library sequences.  Returns K12's and K18's table rows."""
     import io
     from jaxmc_torch.backend import oracle
     from jaxmc_torch.kernels import ops
@@ -2497,14 +2634,17 @@ def phase_obs(smi, tag="21 obs"):
         if p.returncode != 0 or "ORACLE verdict gpu" not in p.stdout:
             raise AssertionError(f"{tag}: oracle --smoke exit "
                                  f"{p.returncode}: {p.stderr[-1000:]}")
-        # K12's launches, as the gpu probe's own process counted them
-        smoke_launches = [int(ln.rsplit("launches=", 1)[1])
-                          for ln in p.stdout.splitlines()
-                          if ln.startswith("ORACLE gpu live")
-                          and "launches=" in ln]
-        if smoke_launches != [2]:
+        # K12's and K18's launches, as the gpu probe's own process
+        # counted them: two probe calls, 4 * 4 + 2 K18 launches each
+        smoke_launches = [
+            tuple(int(x) for x in m.groups()) for m in (
+                re.search(r" launches=(\d+) sort_launches=(\d+)", ln)
+                for ln in p.stdout.splitlines()
+                if ln.startswith("ORACLE gpu live")) if m]
+        if smoke_launches != [(2, 36)]:
             raise AssertionError(f"{tag}: the --smoke gpu probe launched "
-                                 f"K12 {smoke_launches} times, not [2]")
+                                 f"(K12, K18) {smoke_launches} times, not "
+                                 f"[(2, 36)]")
         log(f"[{tag}] oracle --smoke {time.time() - t0:.1f}s")
 
         # the profiled run alone, so its site walls share the card with
@@ -2630,18 +2770,21 @@ def phase_obs(smi, tag="21 obs"):
 
         # K12's launches on the main path: the gpu probe process of the
         # profiled `--backend auto` run counted them
-        launches = runs["profiled"][1]["gauges"]["backend.oracle_probe"][
-            "gpu"].get("launches")
-        log(f"[{tag}] K12 launches in the --backend auto run's gpu probe: "
-            f"{launches}; in the --smoke run's: {smoke_launches[0]}")
-        if launches != 2:
-            raise AssertionError(f"{tag}: the auto run's probe launched K12 "
-                                 f"{launches} times, not 2")
-        # K12 against its twin, in this process, on the probe's keys
+        gpu = runs["profiled"][1]["gauges"]["backend.oracle_probe"]["gpu"]
+        launches, sort_launches = gpu.get("launches"), \
+            gpu.get("sort_launches")
+        log(f"[{tag}] K12 and K18 launches in the --backend auto run's gpu "
+            f"probe: {launches}, {sort_launches}; in the --smoke run's: "
+            f"{smoke_launches[0]}")
+        if (launches, sort_launches) != (2, 36):
+            raise AssertionError(f"{tag}: the auto run's probe launched "
+                                 f"(K12, K18) ({launches}, {sort_launches}) "
+                                 f"times, not (2, 36)")
+        # K18 and K12 against their twins, in this process, on the
+        # probe's keys
         keys = oracle.probe_keys(DEVICE)
-        perm = ops.lsd_sort(keys)
-        sk = keys[perm].contiguous()
-        perm = perm.to(torch.int32)
+        sort_row = check_sort(keys, sort_launches, tag, "sort_keys@oracle")
+        sk, perm = ops.sort_keys(keys)
         args = (sk, perm, keys)
         k = ops.oracle_probe(*args)
         tw = ops.oracle_probe_twin(*args)
@@ -2678,7 +2821,7 @@ def phase_obs(smi, tag="21 obs"):
             library_ms=cuda_time(library, flush=True),
             note=f" [N={N}; 1 launch; L2 flushed before each call; device "
                  f"time {dev_ms:.4f} ms; phase {time.time() - t_phase:.1f}s]")
-        return row
+        return [row, sort_row]
     finally:
         shutil.rmtree(d, ignore_errors=True)
 
@@ -2856,7 +2999,7 @@ def check_mesh_gather(eng, got, launches, tag):
 
 def check_mesh_merge(eng, got, tag):
     """B.12b, one shard's merge at the a2a run's widest level (K8 at
-    mesh_vc and mesh_front, the LSD sort, K3, K4, the CONSTRAINTs), on
+    mesh_vc and mesh_front, K18, K3, K4, the CONSTRAINTs), on
     the kernels against the same merge on the twins: equal outputs,
     both timed, beside the merge's byte bound."""
     from jaxmc_torch.kernels import ops
@@ -3397,24 +3540,30 @@ def main() -> int:
 
     eng, got, counts, _ = phase_reduction(
         "8 symmetry", "symtoy_scaled.tla", CFG_SYM, PINS_SYM,
-        ("unpack_rows", "canon_rows", "keys_of_canon", "seen_probe",
-         "rank_merge", "gen_expand"))
+        ("unpack_rows", "canon_rows", "keys_of_canon", "sort_keys",
+         "seen_probe", "rank_merge", "front_order", "gen_expand"))
     table += check_canon(eng, got, counts)
+    table.append(check_sort(got["merge"][0], counts["sort_keys"],
+                            "8 symmetry", "sort_keys@sym"))
     table.append(check_gen_expand(eng, got["expand"][0],
                                   counts["gen_expand"], "8 symmetry",
                                   "gen_expand@sym"))
     del eng, got
     eng, got, counts, _ = phase_reduction(
         "9 view", "viewtoy_scaled.tla", CFG_VIEW, PINS_VIEW,
-        ("unpack_rows", "keys_of_view", "seen_probe", "rank_merge",
-         "gen_expand", "gen_pred", "gen_value"))
+        ("unpack_rows", "keys_of_view", "sort_keys", "seen_probe",
+         "rank_merge", "front_order", "gen_expand", "gen_pred",
+         "gen_value"))
     table += check_view(eng, got, counts)
+    table.append(check_sort(got["merge"][0], counts["sort_keys"],
+                            "9 view", "sort_keys@view"))
     table += check_gen_pred_value(eng, got, counts, "9 view", "@view")
     del eng, got
     eng, got, counts, por = phase_reduction(
         "10 por", "msgstoy.tla", CFG_POR, PINS_POR,
-        ("unpack_rows", "keys_of", "seen_probe", "seen_probe_por",
-         "por_mask", "rank_merge", "gen_expand"), por=True)
+        ("unpack_rows", "keys_of", "sort_keys", "seen_probe",
+         "seen_probe_por", "por_mask", "rank_merge", "front_order",
+         "gen_expand"), por=True)
     got_pins = {k: por.get(k) for k in POR_PINS}
     if got_pins != POR_PINS:
         raise AssertionError(f"por counters {got_pins} != {POR_PINS}")
@@ -3456,9 +3605,9 @@ def main() -> int:
     mark(18)
     phase_durability(counts_4p)
     mark(19)
-    table.append(phase_full_sort(counts_4p))
+    table += phase_full_sort(counts_4p)
     mark(20)
-    table.append(phase_obs(smi))
+    table += phase_obs(smi)
     mark(21)
     table += phase_mesh(counts_4p)
     mark(22)

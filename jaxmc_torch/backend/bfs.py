@@ -14,11 +14,12 @@ one step:
   4. with --por: probe the keys against    K3 seen_probe   (CUDA)
      the pre-level seen table and mask
      every non-ample arm's candidates      K6 por_mask     (CUDA)
-  5. stable-sort the candidate keys        torch.sort (LSD passes)
+  5. stable-sort the candidate keys        K18 sort_keys   (CUDA)
   6. probe them against the sorted seen    K3 seen_probe   (CUDA)
   7. rank-merge the new keys into the table K4 rank_merge  (CUDA)
-  8. apply the CONSTRAINTs, 9. order the next frontier by provenance,
-  10. check the invariants                 torch + the emitter
+  8. apply the CONSTRAINTs                 the emitter
+  9. order the next frontier by provenance K18 front_order (CUDA)
+  10. check the invariants                 the emitter
 
 Two dedup modes, as the reference: exact (keys are the key basis) and
 fp128 (keys are four 32-bit mixes of it) when the key width passes
@@ -786,9 +787,32 @@ class TorchExplorer:
         return ops.por_mask(found, cvalid, plan["inst_arm_t"],
                             plan["arm_safe_t"], self.A, FC)
 
+    def _sort_keys(self, keys):
+        """(skeys, sidx int32): the stable K-word sort of key rows with
+        their indices, K18 or its twin."""
+        f = ops.sort_keys_twin if self.twins else ops.sort_keys
+        return f(keys)
+
+    def _merge_sorted(self, seen, seen_count: int, skeys, sidx):
+        """bfs._rank_merge after its sort: K3 probes the sorted keys
+        against the seen prefix and K4 merges the new ones (or their
+        twins)."""
+        if self.twins:
+            found, lb = ops.seen_probe_twin(seen, seen_count, skeys)
+            return ops.merge_sorted_twin(seen, seen_count, skeys, sidx,
+                                         found, lb)
+        found, lb = ops.seen_probe(seen, seen_count, skeys)
+        return ops.merge_sorted(seen, seen_count, skeys, sidx, found, lb)
+
     def _rank_merge(self, seen, seen_count: int, keys):
-        f = ops.rank_merge_twin if self.twins else ops.rank_merge
-        return f(seen, seen_count, keys)
+        skeys, sidx = self._sort_keys(keys)
+        return self._merge_sorted(seen, seen_count, skeys, sidx)
+
+    def _front_order(self, explore, prov, FC: int):
+        """The next frontier's order by provenance (bfs.py:1879-1883):
+        K18's front_order site, or its twin."""
+        f = ops.front_order_twin if self.twins else ops.front_order
+        return f(explore, prov, self.A, FC)
 
     def _full_sort(self, seen, seen_count: int, keys):
         """The full-sort merge (bfs.py:1820-1851, JAXMC_LEVEL_RANKMERGE=0):
@@ -806,9 +830,7 @@ class TorchExplorer:
         C = keys.shape[0]
         allk = torch.cat([seen, keys])
         allk[seen_count:SC, 0] = int(SENTINEL)
-        perm = ops.lsd_sort(allk)
-        skeys = allk[perm].contiguous()
-        perm = perm.to(torch.int32)
+        skeys, perm = self._sort_keys(allk)
         sflag = (perm >= SC).to(torch.int32)
         f = ops.fullsort_dedup_twin if self.twins else ops.fullsort_dedup
         new_cidx, seen2, counts = f(skeys, sflag, perm, SC, C)
@@ -934,11 +956,8 @@ class TorchExplorer:
         explore_count = explore.sum()
         # the next frontier is ordered by PROVENANCE (frontier-slot
         # major, action minor), never by key order: the reference's
-        # stable 2-key sort on (not explore, fmaj) as one int64 key
-        fmaj = (new_prov % FC) * max(A, 1) + torch.div(
-            new_prov, FC, rounding_mode="floor")
-        key4 = (~explore).to(torch.int64) * (1 << 40) + fmaj
-        perm4 = torch.sort(key4, stable=True).indices
+        # stable 2-key sort on (not explore, fmaj)
+        perm4 = self._front_order(explore, new_prov, FC)
         front_rows = new_rows[perm4]
         front_rows_u = new_rows_u[perm4]
         front_prov = new_prov[perm4].to(torch.int32)
@@ -1692,10 +1711,15 @@ class TorchExplorer:
         K, PW = self.K, self.PW
         SC, FCap, AccCap = seen.shape[0], frontier.shape[0], caps["AccCap"]
         sent = int(SENTINEL)
+        # the unfilled accumulator rows hold the invalid key, as the
+        # chunks' invalid rows do (the reference fills SENTINEL; either
+        # sorts after every valid key and is never new): K18 takes the
+        # rows equal to the last row out of its digit passes
+        acc_keys = torch.full((AccCap, K), sent, dtype=torch.int32,
+                              device=dev)
+        acc_keys[:, 0].fill_(1)      # a fill launch: no host copy
         lv = dict(seen=seen, seen_count=seen_count, frontier=frontier,
-                  fcount=fcount, CH=CH, VC=caps["VC"],
-                  acc_keys=torch.full((AccCap, K), sent, dtype=torch.int32,
-                                      device=dev),
+                  fcount=fcount, CH=CH, VC=caps["VC"], acc_keys=acc_keys,
                   acc_rows=torch.full((AccCap, PW), sent, dtype=torch.int32,
                                       device=dev),
                   carry=torch.zeros(len(ops.CARRY), dtype=torch.int64,

@@ -25,9 +25,9 @@ keeps them in a sorted seen shard.  A level, per shard in turn:
      keys against its pre-level seen shard,
      the verdicts summed, then the ample mask
   5. the exchange (all shards at once)        K13
-  6. the rank merge: compact the valid        K8 (mesh_vc), K3, K4
-     exchanged rows to VC, sort, probe, merge
-     (JAXMC_MESH_RANKMERGE=0: the full sort   LSD sort, K11)
+  6. the rank merge: compact the valid        K8 (mesh_vc), K18, K3,
+     exchanged rows to VC, sort, probe, merge K4
+     (JAXMC_MESH_RANKMERGE=0: the full sort   K18, K11)
   7. the CONSTRAINTs, the explore compaction  K8 (mesh_front)
   8. the invariants over the new frontier
   9. the replicated scalar vector             K14
@@ -447,9 +447,7 @@ class MeshExplorer(TorchExplorer):
             seen_m = seen_d.clone()
             seen_m[scount:] = inv_key
             allk = torch.cat([seen_m, gkeys])
-            perm = ops.lsd_sort(allk)
-            skeys = allk[perm].contiguous()
-            perm = perm.to(torch.int32)
+            skeys, perm = self._sort_keys(allk)
             sflag = (perm >= SC).to(torch.int32)
             f = ops.fullsort_dedup_twin if self.twins else ops.fullsort_dedup
             new_cidx, seen2, counts = f(skeys, sflag, perm, SC, R)
@@ -1170,10 +1168,10 @@ class MeshExplorer(TorchExplorer):
                           there is no collective: the a2a buckets are
                           written straight into each owner's receive
                           layout (_Local)
-          merge_rank      per shard: K8 (mesh_vc), the LSD sort, K3, K4,
-                          the CONSTRAINTs and K8 (mesh_front)
-          merge_fullsort  per shard: the LSD sort over seen + received
-                          keys and K11, then the same epilogue
+          merge_rank      per shard: K8 (mesh_vc), K18, K3, K4, the
+                          CONSTRAINTs and K8 (mesh_front)
+          merge_fullsort  per shard: K18 over seen + received keys
+                          and K11, then the same epilogue
 
         Both merges run on the same inputs every level; the rank merge's
         output carries the probe to the next level.  It stops when the

@@ -8,9 +8,9 @@ shape in miniature) inside a TIMEOUT-GUARDED subprocess, because a dead
 accelerator hangs at device init, and a hang inside the parent would
 defeat the point.
 
-The probe program (`probe`) is B.13: the sort is the port's LSD chain
-(kernels/ops.py lsd_sort) and everything after it is K12
-`oracle_probe` on the card, its plain twin on the CPU.  The parent
+The probe program (`probe`) is B.13: the sort is K18 `sort_keys` and
+everything after it is K12 `oracle_probe` on the card, their plain
+twins on the CPU.  The parent
 builds the kernels (nvcc, host work that never touches the card) in a
 `build` span before the probes start, so the gpu probe only loads the
 prebuilt library by ctypes and its budget is not spent compiling.
@@ -26,7 +26,8 @@ Telemetry:
   gauge backend.oracle_probe    {platform: {live, compile_s,
                                 dispatch_s, devices, error?}}; a
                                 live gpu probe adds `launches`, K12's
-                                count in the probe's process
+                                count in the probe's process, and
+                                `sort_launches`, K18's
   gauge backend.oracle_wall_s   total preflight wall
 
 CLI: `python -m jaxmc_torch.backend.oracle [--smoke] [--deadline S]`
@@ -84,13 +85,11 @@ def probe_keys(device="cpu"):
 
 def probe(keys):
     """The probe program on `keys` [N, 4] int32: the stable 4-key sort
-    with a row-index payload (the LSD chain), then K12 (its twin for a
-    CPU tensor).  Returns the wrapped int32 checksum, a 0-d tensor."""
-    import torch
+    with a row-index payload (K18), then K12 (their twins for a CPU
+    tensor).  Returns the wrapped int32 checksum, a 0-d tensor."""
     from ..kernels import ops
-    perm = ops.lsd_sort(keys)
-    sk = keys[perm].contiguous()
-    _out, _lo, value = ops.oracle_probe(sk, perm.to(torch.int32), keys)
+    sk, perm = ops.sort_keys(keys)
+    _out, _lo, value = ops.oracle_probe(sk, perm, keys)
     return value
 
 
@@ -119,10 +118,12 @@ def _probe_child(platform: str) -> int:
          "dispatch_s": round(dispatch_s, 4),
          "import_s": round(t_ready - t_import, 4)}
     if platform == "gpu":
-        # K12's launches in this process: the port's addition, which
-        # says the verdict was reached through the kernel
+        # K12's and K18's launches in this process: the port's
+        # addition, which says the verdict was reached through the
+        # kernels
         from ..kernels import ops
         r["launches"] = ops.LAUNCHES["oracle_probe"]
+        r["sort_launches"] = ops.LAUNCHES["sort_keys"]
     print(json.dumps(r))
     return 0
 
@@ -145,8 +146,9 @@ def _parse_probe(p: subprocess.Popen, out: str, err: str,
     out = {"live": True, "devices": r.get("devices"),
            "compile_s": r.get("compile_s"),
            "dispatch_s": r.get("dispatch_s")}
-    if "launches" in r:
-        out["launches"] = r["launches"]
+    for k in ("launches", "sort_launches"):
+        if k in r:
+            out[k] = r[k]
     return out
 
 
@@ -275,8 +277,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             print(f"ORACLE {plat} live devices={pr['devices']} "
                   f"compile={pr['compile_s']}s "
                   f"dispatch={pr['dispatch_s']}s"
-                  + (f" launches={pr['launches']}"
-                     if "launches" in pr else ""))
+                  + "".join(f" {k}={pr[k]}" for k in
+                            ("launches", "sort_launches") if k in pr))
         else:
             print(f"ORACLE {plat} SKIP: {pr.get('error')}")
     print(f"ORACLE verdict {v['platform'] or 'none'} "

@@ -31,7 +31,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
 BUILD_ROOT = os.path.join(HERE, "_build")
 SOURCES = ("unpack", "keys", "probe", "merge", "canon", "por", "hstep",
-           "resident", "batch", "fullsort", "oracle", "mesh")
+           "resident", "batch", "fullsort", "oracle", "mesh", "sort")
 # headers the sources include (in the digest: a changed header rebuilds)
 HEADERS = ("lookback.cuh",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -74,11 +74,14 @@ ARGTYPES = {
                                           _I64, _I, _I, _I, _P],
     "jmc_mesh_route_gather": [_P] * 3 + [_I64, _I, _I, _I, _I, _I, _P],
     "jmc_mesh_scalars": [_P] * 2 + [_I, _I, _I, _I, _P],
+    "jmc_sort_workspace_words": [_I64, _I],
+    "jmc_sort_keys": [_P] * 7 + [_I64, _I, _I, _I, _I64, _I64, _I, _P],
 }
 # return types other than the cudaError_t (an int) of a launch
 RESTYPE = {"jmc_hstep_workspace_bytes": _I64,
            "jmc_res_workspace_bytes": _I64,
-           "jmc_fullsort_workspace_bytes": _I64}
+           "jmc_fullsort_workspace_bytes": _I64,
+           "jmc_sort_workspace_words": _I64}
 ENTRY = {"unpack": ["jmc_unpack_rows"], "keys": ["jmc_keys_of"],
          "probe": ["jmc_seen_probe"],
          "merge": ["jmc_merge_sorted"],
@@ -96,7 +99,8 @@ ENTRY = {"unpack": ["jmc_unpack_rows"], "keys": ["jmc_keys_of"],
          "oracle": ["jmc_oracle_probe"],
          "mesh": ["jmc_mesh_threads", "jmc_mesh_route_fill",
                   "jmc_mesh_route_count", "jmc_mesh_route_scan", "jmc_mesh_route_scatter",
-                  "jmc_mesh_route_gather", "jmc_mesh_scalars"]}
+                  "jmc_mesh_route_gather", "jmc_mesh_scalars"],
+         "sort": ["jmc_sort_workspace_words", "jmc_sort_keys"]}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -4,7 +4,7 @@
 // Replaces: jaxmc/backend/bfs.py:1820-1851, the JAXMC_LEVEL_RANKMERGE=0
 // branch of _get_step's step: after the stable [SC+C, K+1]-key sort of
 // the seen table and the candidates (lax.sort, outside any Pallas
-// kernel; the port sorts with its LSD chain of torch.sort), the
+// kernel; the port sorts with K18 sort_keys, sort.cu), the
 // first-of-run `new` mask, `keep`, and the compactions
 // lax.sort((1 - new, cidx)) and lax.sort((1 - keep, keys...)), both
 // with num_keys=1 and is_stable=True, i.e. stable partitions.

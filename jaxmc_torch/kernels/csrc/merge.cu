@@ -7,8 +7,9 @@
 // merge at jaxmc/backend/mesh.py:663): the adjacent-duplicate flags, the
 // `new` verdict, the cumsum compaction to nk_sidx, the scatter-add
 // histogram of the new keys' lower bounds, its cumsum and the rank
-// scatter into seen2.  The stable key sort (lax.sort) is a primitive the
-// reference leaves to the compiler; the port leaves it to torch.sort.
+// scatter into seen2.  The stable key sort before it (lax.sort, a
+// primitive the reference leaves to the compiler) is K18 sort_keys
+// (sort.cu).
 //
 // Bound on the card: bytes.  The live seen rows are read once
 // (count*K*4) and the whole SC-row table written once (SC*K*4); every

@@ -6,7 +6,7 @@
 // stable 4-key lax.sort with a row-index payload, `out.at[perm].set(sk)`,
 // a 14-step lax.fori_loop lower bound of keys[:, 0] in sk[:, 0] with
 // clip(mid, 0, N-1), and `out.sum() + lo.sum()` in int32.  The sort
-// stays the port's LSD chain of torch.sort (kernels/ops.py lsd_sort).
+// before it is K18 sort_keys (sort.cu).
 //
 // Bound on the card: bytes.  Each row reads its 4 sorted words, its
 // permutation entry and keys[i, 0], and writes its 4 words at out[perm]

@@ -24,8 +24,7 @@ too, which is how the kernels are compared with them on the card.
   merge_sorted  K4  backend/bfs.py _rank_merge after its sort and
                     probe (flags, compaction, rank histogram and
                     scatter, in two launches with no prefix sum
-                    between them); rank_merge = LSD sort
-                    (torch.sort) + K3 + K4
+                    between them); rank_merge = K18 + K3 + K4
   canon_rows    K5  compile/symmetry2.py build_canon2 / canon_row
   por_mask      K6  backend/bfs.py _por_mask
   hstep_epilogue K7 backend/bfs.py _hstep_core's masks and reductions
@@ -64,6 +63,12 @@ too, which is how the kernels are compared with them on the card.
   gen_pred      K16 compile/kernel2.py compile_predicate2: one
                     invariant or constraint over a row block
   gen_value     K17 compile/kernel2.py compile_value2: the VIEW lanes
+  sort_keys     K18 backend/bfs.py _lsd_sort / the lax.sort of
+                    _rank_merge, the full-sort step, the mesh's
+                    full-sort merge and oracle.py's probe: a stable
+                    K-word radix sort with its row-index payload; its
+                    front_order site is the level step's next-frontier
+                    order (bfs.py:1879-1883)
 
 K15-K17 are generated, not written in csrc/: their twins are the
 emitter calls the engine makes without them (compile/kernel2.py over
@@ -102,7 +107,8 @@ LAUNCHES: Dict[str, int] = {"unpack_rows": 0, "keys_of": 0,
                             "resident_compact_mesh_front": 0,
                             "mesh_route": 0, "mesh_route_gather": 0,
                             "mesh_scalars": 0, "gen_expand": 0,
-                            "gen_pred": 0, "gen_value": 0}
+                            "gen_pred": 0, "gen_value": 0,
+                            "sort_keys": 0, "front_order": 0}
 # arms the device POR filter takes (por.cu kMaxWords * 64)
 POR_MAX_ARMS = 1024
 # a kernel library's tile size, read from it once
@@ -582,7 +588,7 @@ def seen_probe(seen: torch.Tensor, seen_count: int, keys: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# K4 rank_merge
+# K18 sort_keys and its front_order site
 # ---------------------------------------------------------------------------
 
 def lsd_sort(keys: torch.Tensor) -> torch.Tensor:
@@ -597,10 +603,128 @@ def lsd_sort(keys: torch.Tensor) -> torch.Tensor:
     return perm
 
 
-def _sort_keys(keys: torch.Tensor):
-    """(sorted keys, their original row indices as int32)."""
+def sort_keys_twin(keys: torch.Tensor):
+    """(skeys [N, K], sidx [N] int32): the rows of keys in lexicographic
+    order (signed int32 words, word 0 most significant), equal rows in
+    index order, and each sorted row's index: lax.sort(cols +
+    (arange,), num_keys=K, is_stable=True) of the reference, as the
+    lsd_sort chain and one gather."""
     perm = lsd_sort(keys)
     return keys[perm].contiguous(), perm.to(torch.int32)
+
+
+# the most rows K18 takes (its status words count in 30 bits) and the
+# most key words (4 KB of upsweep histograms a word in one block's
+# shared memory: (SMEM_MAX - 1024) // 4096)
+SORT_MAX_N = 2**30
+SORT_MAX_K = 56
+
+
+def _sort_run(name: str, device: torch.device, n: int, k: int, np_: int,
+              sidx: torch.Tensor, mode: int, keys=None, skeys=None,
+              explore=None, prov=None, a: int = 1, fc: int = 1,
+              bits: int = 0) -> None:
+    """One K18 call (sort.cu jmc_sort_keys: np_ digit positions, np_ + 2
+    launches, counted under `name`): its word columns and tail bytes
+    are one allocation, its workspace the zero words past K2's and K4's
+    first two, taken and launched under the lock."""
+    from . import build
+    lib = build.library("sort")
+    dev = device.index
+    buf = torch.empty((2 * (k + 1) * n + (n + 3) // 4,), dtype=torch.int32,
+                      device=device)
+    words = lib.jmc_sort_workspace_words(n, np_)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+    with _ZERO_WORDS.lock:
+        ws = _ZERO_WORDS.take(device, dev, (words + 1) // 2) + 16
+        rc = lib.jmc_sort_keys(ptr(keys), ptr(explore), ptr(prov),
+                               ptr(skeys), sidx.data_ptr(), buf.data_ptr(),
+                               ws, n, k, np_, mode, a, fc, bits,
+                               _raw_stream(dev))
+        if rc != 0:
+            _ZERO_WORDS.drop(dev)
+    _launch(name, rc, np_ + 2)
+
+
+def sort_keys(keys: torch.Tensor):
+    """K18: sort_keys_twin's function by a stable LSD radix sort over
+    the words' bytes (csrc/sort.cu), exact on any int32 input: an
+    upsweep, 4K digit passes (those whose digit is one value on every
+    row exit on the card) and a clearing launch, 4K + 2 launches a
+    call, counted under sort_keys.  The rows equal to the last row (the
+    engines' filler keys) skip the digit passes.  skeys and sidx are views of one
+    allocation.  Nothing is read back to the host; the workspace is
+    the zero words, so a call may be captured in a CUDA graph.  A CPU
+    tensor takes the twin; a shape the kernel does not take raises
+    ValueError."""
+    if not _ok(keys, torch.int32, 2):
+        _check(keys, "sort_keys.keys", 2)
+    if keys.is_cpu:
+        return sort_keys_twin(keys)
+    N, K = keys.shape
+    if not 1 <= K <= SORT_MAX_K:
+        raise ValueError(f"sort_keys: keys of {K} words; the kernel takes "
+                         f"1 to {SORT_MAX_K}")
+    if N >= SORT_MAX_N:
+        raise ValueError(f"sort_keys: {N} rows; the kernel takes fewer "
+                         f"than {SORT_MAX_N}")
+    out = torch.empty((N * (K + 1),), dtype=torch.int32, device=keys.device)
+    skeys, sidx = out[:N * K].view(N, K), out[N * K:]
+    if N:
+        _sort_run("sort_keys", keys.device, N, K, 4 * K, sidx, 0, keys=keys,
+                  skeys=skeys)
+    return skeys, sidx
+
+
+
+def front_order_twin(explore: torch.Tensor, prov: torch.Tensor, A: int,
+                     FC: int) -> torch.Tensor:
+    """perm [C] int32: the stable order of the C new rows by (not
+    explore, fmaj), fmaj = (prov % FC) * A + prov // FC, the frontier
+    slot major and the action minor (bfs.py:1879-1883, comp4's perm4),
+    as one int64 key and torch.sort.  prov lies in [0, C), C = A * FC."""
+    fmaj = (prov % FC) * max(A, 1) + torch.div(prov, FC,
+                                               rounding_mode="floor")
+    key4 = (~explore).to(torch.int64) * (1 << 40) + fmaj
+    return torch.sort(key4, stable=True).indices.to(torch.int32)
+
+
+def front_order(explore: torch.Tensor, prov: torch.Tensor, A: int,
+                FC: int) -> torch.Tensor:
+    """K18's front_order site: front_order_twin's function as K18's
+    launches over one word, (1 - explore) << b | fmaj with b =
+    bit_length(C - 1), built in its first passes; the rows equal to the
+    last row (most often those past the new count: provenance 0, not
+    explored) skip the digit passes, and only the ceil((b + 1) / 8)
+    digit positions of b + 1 bits are launched: that many + 2 launches
+    a call, counted under front_order."""
+    if not (_ok(explore, torch.bool, 1) and _ok(prov, torch.int64, 1)):
+        _check(explore, "front_order.explore", 1, torch.bool)
+        _check(prov, "front_order.prov", 1, torch.int64)
+    C = explore.shape[0]
+    if prov.shape[0] != C:
+        raise ValueError(f"front_order: explore [{C}], prov "
+                         f"[{prov.shape[0]}]")
+    if explore.is_cpu:
+        return front_order_twin(explore, prov, A, FC)
+    if prov.get_device() != explore.get_device():
+        _same_device("front_order", explore, prov)
+    if C >= SORT_MAX_N or FC < 1:
+        raise ValueError(f"front_order: {C} rows, FC {FC}; the kernel "
+                         f"takes fewer than {SORT_MAX_N} rows and FC >= 1")
+    sidx = torch.empty((C,), dtype=torch.int32, device=explore.device)
+    if C:
+        b = (C - 1).bit_length()
+        _sort_run("front_order", explore.device, C, 1, b // 8 + 1, sidx, 1,
+                  explore=explore, prov=prov, a=max(A, 1), fc=FC, bits=b)
+    return sidx
+
+
+# ---------------------------------------------------------------------------
+# K4 rank_merge
+# ---------------------------------------------------------------------------
 
 
 def merge_sorted_twin(seen: torch.Tensor, seen_count: int,
@@ -739,15 +863,15 @@ def rank_merge_twin(seen: torch.Tensor, seen_count: int,
     """bfs._rank_merge(multikey=True) with the twins: sort the
     candidate keys, probe them against the sorted seen prefix, then
     merge_sorted_twin."""
-    skeys, sidx = _sort_keys(keys)
+    skeys, sidx = sort_keys_twin(keys)
     found, lb = seen_probe_twin(seen, seen_count, skeys)
     return merge_sorted_twin(seen, seen_count, skeys, sidx, found, lb)
 
 
 def rank_merge(seen: torch.Tensor, seen_count: int,
                keys: torch.Tensor) -> dict:
-    """bfs._rank_merge(multikey=True) on the kernels: the LSD sort
-    (torch.sort), K3 for the probe, K4 for the merge."""
+    """bfs._rank_merge(multikey=True) on the kernels: K18 for the sort,
+    K3 for the probe, K4 for the merge."""
     _check(seen, "rank_merge.seen", 2)
     _check(keys, "rank_merge.keys", 2)
     if keys.shape[1] != seen.shape[1]:
@@ -755,7 +879,7 @@ def rank_merge(seen: torch.Tensor, seen_count: int,
     if not 0 <= int(seen_count) <= seen.shape[0]:
         raise ValueError(f"rank_merge: count {seen_count} outside "
                          f"[0, {seen.shape[0]}]")
-    skeys, sidx = _sort_keys(keys)
+    skeys, sidx = sort_keys(keys)
     found, lb = seen_probe(seen, seen_count, skeys)
     return merge_sorted(seen, seen_count, skeys, sidx, found, lb)
 

@@ -11,9 +11,9 @@ Builds TorchExplorer on the CUDA card and runs the search three times:
   3. with a synchronise after each stage of the level step — unpack
      (K1), expand (K15 gen_expand; the emitter with twins), keys (K2,
      and the VIEW's K17),
-     canon (K5, under SYMMETRY), por (K3 + K6, with --por), merge
-     (sort + K3 + K4), predicates (CONSTRAINTs and invariants) — and
-     around the whole
+     canon (K5, under SYMMETRY), por (K3 + K6, with --por), sort
+     (K18 sort_keys), merge (K3 + K4), predicates (CONSTRAINTs and
+     invariants), order (K18's front_order) — and around the whole
      step, so each stage's wall (host dispatch plus its device work),
      the rest of the step and the loop around it add up to the run's.
      With --host-seen the stages are those of a chunk — unpack (K1),
@@ -23,8 +23,8 @@ Builds TorchExplorer on the CUDA card and runs the search three times:
      arms) — and the step is one chunk (unpack to k7).  With
      --resident the stages are those of a level — unpack (K1), expand,
      k8 (the chunk and explore compactions), keys (K2), canon (K5),
-     por (K3 + K6), k9 (the chunk fold), merge (sort + K3 + K4),
-     predicates, read (the one summary read) — and the step is one
+     por (K3 + K6), k9 (the chunk fold), sort (K18), merge (K3 +
+     K4), predicates, read (the one summary read) — and the step is one
      level (its chunks and its end, without the read).
 Each measured run starts from a cleared initial-state memo, so it
 encodes, dedups and checks the initial states as a first run does.
@@ -44,13 +44,15 @@ import time
 import torch
 
 STAGES = ("level.unpack", "level.expand", "level.keys", "level.canon",
-          "level.por", "level.merge", "level.predicates")
+          "level.por", "level.sort", "level.merge", "level.predicates",
+          "level.order")
 STEP = "level.step"
 HS_STAGES = ("hs.unpack", "hs.expand", "hs.keys", "hs.canon",
              "hs.predicates", "hs.k7", "hs.d2h", "hs.store", "hs.fallback")
 HS_STEP = "hs.step"
 RES_STAGES = ("res.unpack", "res.expand", "res.k8", "res.keys", "res.canon",
-              "res.por", "res.k9", "res.merge", "res.predicates", "res.read")
+              "res.por", "res.k9", "res.sort", "res.merge",
+              "res.predicates", "res.read")
 RES_STEP = "res.level"
 RANGES = STAGES + (STEP,) + HS_STAGES + (HS_STEP,) + RES_STAGES + \
     (RES_STEP,)
@@ -178,9 +180,16 @@ def staged_engine(model, timed: bool, **kw):
             return stage("level.por", super()._por_filter, seen,
                          seen_count, ckeys, cvalid, FC)
 
-        def _rank_merge(self, seen, seen_count, keys):
-            return stage(P + "merge", super()._rank_merge, seen,
-                         seen_count, keys)
+        def _sort_keys(self, keys):
+            return stage(P + "sort", super()._sort_keys, keys)
+
+        def _merge_sorted(self, seen, seen_count, skeys, sidx):
+            return stage(P + "merge", super()._merge_sorted, seen,
+                         seen_count, skeys, sidx)
+
+        def _front_order(self, explore, prov, FC):
+            return stage(P + "order", super()._front_order, explore, prov,
+                         FC)
 
     eng = Staged(model, **kw)
 
@@ -254,8 +263,8 @@ def profile_run(spec, cfg=None, seen_mode="auto", top=12, por=False,
                        for k, (us, c) in top_dev],
         "staged_wall_s": wall3,
         "stage_s": {k: acc[k] for k in stages},
-        # the rest of the step (level: new-row gathers, the provenance
-        # sort, the verdict scalars; host-seen: the masks, the SENTINEL
+        # the rest of the step (level: new-row gathers, the verdict
+        # scalars; host-seen: the masks, the SENTINEL
         # fill) and the host loop around the steps
         "step_rest_s": acc[step] - sum(
             acc[k] for k in stages if k not in (

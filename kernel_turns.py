@@ -1,36 +1,39 @@
 #!/usr/bin/env python3
-"""Time this tree's K4 merge_sorted (and the whole rank_merge beside it)
-and K2 keys_of (exact, fp128, canonical and view branches) against
-another tree's (an earlier commit unpacked with `git archive`) on the
-same inputs on one CUDA card, in turns: other, this, this, other.
+"""Time this tree's K18 sort_keys and its front_order site (and the
+whole rank_merge beside them) against another tree's sorts (an earlier
+commit unpacked with `git archive`, whose port sorted with chains of
+torch.sort) on the same inputs on one CUDA card, in turns: other, this,
+this, other.
 
     python3 kernel_turns.py OTHER_TREE [--out FILE.json]
 
 The inputs are captured on the card from the level engine, each the
 largest call of its search: the merge with the most valid candidate
-keys and the keys_of call with the most valid rows, at transfer_scaled
-("ts"), its 4-process model ("4p"), symtoy_scaled_4p ("sym": K2's
-canonical branch) and viewtoy_scaled_big ("view": K2's view branch);
-K2's fp128 branch runs on the ts and 4p rows.  K4 is called on the
-sorted keys and their probe as rank_merge calls it.  OTHER_TREE's
-kernels package is loaded under another name, so both trees' kernels
-(each built from its own sources into its own kernels/_build/) run in
-this process on the same tensors.  Each turn holds both trees' results
-against the twins bit for bit, then times each call by CUDA events (the
-best of three means of 20 calls after 3; at every site but ts one call
-at a time after 256 MiB are written over L2), its device time by the
-profiler (every kernel and memset of the call, the L2 write excluded)
-and the host's time a call (enqueueing only).  K12 oracle_probe and its
-library call (torch.searchsorted + index_copy_ + two sums) are timed in
-the same turns.  After the turns, this tree's K2 runs at other
-geometries (GEOMETRIES: warps a block, rows a warp's tile, listed rows a
-pass), and both trees' K2 at the sym and view sites with the captured
-validity and with it permuted (the valid rows scattered).  Prints each
-build's ptxas lines for keys.cu and merge.cu, the card's name and power
-limit and one JSON object."""
+keys at transfer_scaled ("ts"), its 4-process model ("4p"),
+symtoy_scaled_4p ("sym"), viewtoy_scaled_big ("view") and the
+4-process model's resident engine at chunk 65,536 ("res"); the fp128
+keys of the ts and 4p candidate blocks (K2's hash of the keys_of call
+with the most valid rows); the next-frontier order of the widest level
+at ts and 4p.  The other tree's sort is its kernels package's
+sort_keys, or before K18 its _sort_keys (the lsd_sort chain of
+torch.sort and one gather); its
+frontier order is torch.sort of the int64 key, the code its level step
+ran (this tree's ops.front_order_twin); rank_merge is each tree's own.
+OTHER_TREE's kernels package is loaded under another name, so both
+trees' kernels (each built from its own sources into its own
+kernels/_build/) run in this process on the same tensors.  Each turn
+holds both trees' results against the twins bit for bit, then times
+each call by CUDA events (the best of three means of 20 calls after 3
+at ts, of 5 for rank_merge; at every other site of 5 calls, each after
+256 MiB are written over L2), its device time by the profiler (every kernel and memset of the call, the
+L2 write excluded) and the host's time a call (enqueueing only).  After
+the turns: this tree's K18 calls launch by launch (device time), each
+tree's memory a call above the live tensors at 4p, and
+the 4-process level run's peak memory (torch.cuda.max_memory_allocated
+over its second run) of each tree in a child process.  Prints sort.cu's
+ptxas lines, the card's name and power limit and one JSON object."""
 
 import argparse
-import contextlib
 import importlib
 import importlib.util
 import json
@@ -43,8 +46,18 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PINS_4P = (9394019, 24035597, 12)
-FLUSHED = ("4p", "sym", "view")
+FLUSHED = ("4p", "sym", "view", "res")
 L2_BYTES = 256 << 20
+# a child that runs the 4-process level engine twice and prints its
+# counts and the second run's peak memory
+PEAK_SRC = ("import sys, torch; sys.path.insert(0, sys.argv[1]); "
+            "from jaxmc_torch.backend.bfs import TorchExplorer; "
+            "from jaxmc_torch.session import load_model; "
+            "e = TorchExplorer(load_model(sys.argv[2], sys.argv[3]), "
+            "store_trace=False, progress_every=1e9); e.run(); "
+            "torch.cuda.synchronize(); torch.cuda.reset_peak_memory_stats(); "
+            "r = e.run(); print(r.distinct, r.generated, r.diameter, "
+            "torch.cuda.max_memory_allocated())")
 
 
 def load_pkg(tree, sub, alias):
@@ -59,52 +72,48 @@ def load_pkg(tree, sub, alias):
     return mod
 
 
-@contextlib.contextmanager
-def keeping_calls(box):
-    """While on, the engine's keys_of and rank_merge calls keep their
-    inputs (clones) in `box`: the call with the most valid rows
-    ("keys": args and keywords) and the merge with the most valid keys
-    ("merge": seen, count, keys)."""
-    from jaxmc_torch.kernels import ops
-    keys_of, rank_merge = ops.keys_of, ops.rank_merge
-
-    def keys2(rows, valid, pt, fp, identity, **kw):
-        n = int(valid.sum())
-        if n > box.get("keys_n", -1):
-            box["keys_n"] = n
-            box["keys"] = ((rows.clone(), valid.clone(), pt, fp, identity),
-                           {k: v.clone() if isinstance(v, torch.Tensor)
-                            else v for k, v in kw.items()})
-        return keys_of(rows, valid, pt, fp, identity, **kw)
-
-    def merge2(seen, count, keys):
-        n = int((keys[:, 0] == 0).sum())
-        if n > box.get("merge_n", -1):
-            box["merge_n"] = n
-            box["merge"] = (seen.clone(), int(count), keys.clone())
-        return rank_merge(seen, count, keys)
-    ops.keys_of, ops.rank_merge = keys2, merge2
-    try:
-        yield box
-    finally:
-        ops.keys_of, ops.rank_merge = keys_of, rank_merge
-
-
 def capture(cs):
-    """{site: {"keys": ..., "merge": ...}} from the level engine."""
+    """{site: {"merge": (seen, count, keys), "keys": (rows, valid, pt,
+    identity), "front": (explore, prov, A, FC)}} from the level
+    engine."""
     from jaxmc_torch.backend.bfs import TorchExplorer
     from jaxmc_torch.session import load_model
-    runs = {"ts": ("transfer_scaled.tla", None, cs.PINS),
-            "4p": ("transfer_scaled.tla", cs.CFG_4P, PINS_4P),
-            "sym": ("symtoy_scaled.tla", cs.CFG_SYM, cs.PINS_SYM),
-            "view": ("viewtoy_scaled.tla", cs.CFG_VIEW, cs.PINS_VIEW)}
+    runs = {"ts": ("transfer_scaled.tla", None, cs.PINS, {}),
+            "4p": ("transfer_scaled.tla", cs.CFG_4P, PINS_4P, {}),
+            "sym": ("symtoy_scaled.tla", cs.CFG_SYM, cs.PINS_SYM, {}),
+            "view": ("viewtoy_scaled.tla", cs.CFG_VIEW, cs.PINS_VIEW, {}),
+            "res": ("transfer_scaled.tla", cs.CFG_4P, PINS_4P,
+                    dict(resident=True, chunk=cs.CHUNK_RES))}
     sites = {}
-    for site, (spec, cfg, want) in runs.items():
+    for site, (spec, cfg, want, kw) in runs.items():
         box = {}
-        with keeping_calls(box):
-            r = TorchExplorer(load_model(os.path.join(cs.SPECS, spec), cfg),
-                              device=cs.DEVICE, store_trace=False,
-                              progress_every=1e9).run()
+
+        class Capture(TorchExplorer):
+            def _keys_of(self, rows, valid):
+                n = int(valid.sum())
+                if n > box.get("keys_n", -1):
+                    box["keys_n"] = n
+                    box["keys"] = (rows.clone(), valid.clone(), self.pt,
+                                   self.plan.identity)
+                return super()._keys_of(rows, valid)
+
+            def _rank_merge(self, seen, count, keys):
+                n = int((keys[:, 0] == 0).sum())
+                if n > box.get("merge_n", -1):
+                    box["merge_n"] = n
+                    box["merge"] = (seen.clone(), int(count), keys.clone())
+                return super()._rank_merge(seen, count, keys)
+
+            def _front_order(self, explore, prov, FC):
+                n = (explore.numel(), int(explore.sum()))
+                if n > box.get("front_n", (-1, -1)):
+                    box["front_n"] = n
+                    box["front"] = (explore.clone(), prov.clone(), self.A,
+                                    FC)
+                return super()._front_order(explore, prov, FC)
+        r = Capture(load_model(os.path.join(cs.SPECS, spec), cfg),
+                    device=cs.DEVICE, store_trace=False, progress_every=1e9,
+                    **kw).run()
         if (r.distinct, r.generated, r.diameter) != want:
             raise AssertionError(f"{site}: counts {r.distinct} / "
                                  f"{r.generated} / {r.diameter} != {want}")
@@ -112,52 +121,33 @@ def capture(cs):
     return sites
 
 
-def branch(kw):
-    """K2's branch of a keys_of call's keywords: its counter's name and
-    basis kind (0 the stored row, 1 a packed basis, 2 raw lanes)."""
-    if kw.get("basis") is None:
-        return "keys_of", 0
-    return ("keys_of_canon", 1) if kw.get("basis_packed") else \
-        ("keys_of_view", 2)
-
-
-def calls(ops, sites):
-    """{name@site: a function of no argument} for one tree's ops."""
+def calls(sites, ops, other):
+    """{name@site: {"this": f, "other": f, "want": the twins' result}}."""
+    other_sort = getattr(other, "sort_keys", None) or other._sort_keys
     out = {}
     for site, box in sites.items():
-        (rows, valid, pt, fp, ident), kw = box["keys"]
-        name, kind = branch(kw)
-        out[f"{name}@{site}"] = (
-            lambda o=ops, a=(rows, valid, pt, fp, ident), kw=kw:
-            o.keys_of(*a, **kw))
-        if kind == 0:
-            out[f"keys_of_fp128@{site}"] = (
-                lambda o=ops, a=(rows, valid, pt, True, ident):
-                o.keys_of(*a))
-        seen, count, keys, skeys, sidx, found, lb = box["margs"]
-        out[f"merge_sorted@{site}"] = (
-            lambda o=ops, a=(seen, count, skeys, sidx, found, lb):
-            o.merge_sorted(*a))
-        out[f"rank_merge@{site}"] = (
-            lambda o=ops, a=(seen, count, keys): o.rank_merge(*a))
+        seen, count, keys = box["merge"]
+        out[f"sort_keys@{site}"] = dict(
+            this=lambda k=keys: ops.sort_keys(k),
+            other=lambda k=keys: other_sort(k),
+            want=ops.sort_keys_twin(keys))
+        out[f"rank_merge@{site}"] = dict(
+            this=lambda a=(seen, count, keys): ops.rank_merge(*a),
+            other=lambda a=(seen, count, keys): other.rank_merge(*a),
+            want=ops.rank_merge_twin(seen, count, keys))
+        if site in ("ts", "4p"):
+            rows, valid, pt, ident = box["keys"]
+            kf = ops.keys_of(rows, valid, pt, True, ident)[0].clone()
+            out[f"sort_keys_fp128@{site}"] = dict(
+                this=lambda k=kf: ops.sort_keys(k),
+                other=lambda k=kf: other_sort(k),
+                want=ops.sort_keys_twin(kf))
+            a = box["front"]
+            out[f"front_order@{site}"] = dict(
+                this=lambda a=a: ops.front_order(*a),
+                other=lambda a=a: ops.front_order_twin(*a),
+                want=ops.front_order_twin(*a))
     return out
-
-
-def twins(ops, sites):
-    """The twins' results for every name@site of calls()."""
-    want = {}
-    for site, box in sites.items():
-        (rows, valid, pt, fp, ident), kw = box["keys"]
-        name, kind = branch(kw)
-        want[f"{name}@{site}"] = ops.keys_of_twin(rows, valid, pt, fp,
-                                                  ident, **kw)
-        if kind == 0:
-            want[f"keys_of_fp128@{site}"] = ops.keys_of_twin(
-                rows, valid, pt, True, ident)
-        seen, count, keys, skeys, sidx, found, lb = box["margs"]
-        m = ops.merge_sorted_twin(seen, count, skeys, sidx, found, lb)
-        want[f"merge_sorted@{site}"] = want[f"rank_merge@{site}"] = m
-    return want
 
 
 def _same(x, y):
@@ -169,7 +159,7 @@ def _same(x, y):
                        torch.as_tensor(y).to(torch.int64))
 
 
-def host_ms(fn, reps=50):
+def host_ms(fn, reps=20):
     """The host's time a call, enqueueing only (no synchronize inside)."""
     fn()
     torch.cuda.synchronize()
@@ -206,151 +196,91 @@ def device_ms(fn, flush, reps=10):
     return sum(e.time_range.elapsed_us() for e in evs) / reps / 1e3
 
 
-def turn(cs, fns, want, k12, ops):
+def turn(cs, fns, who):
     """One tree's numbers at every site; raises if a result differs from
     its twin's."""
     out = {}
-    for name, call in fns.items():
-        got = call()
+    for name, c in fns.items():
+        call = c[who]
+        if not _same(call(), c["want"]):
+            raise AssertionError(f"{name} ({who}) differs from its twin")
         torch.cuda.synchronize()
-        if not _same(got, want[name]):
-            raise AssertionError(f"{name} differs from its twin")
         flush = name.split("@")[1] in FLUSHED
-        out[name] = dict(ms=events_ms(cs, call, flush=flush),
+        reps = 5 if name.startswith("rank") or flush else 20
+        out[name] = dict(ms=events_ms(cs, call, flush=flush, reps=reps),
                          host_ms=host_ms(call),
                          device_ms=device_ms(call, flush))
-
-    def k12call():
-        return ops.oracle_probe(*k12)
-    if not _same(k12call(), want["k12"]):
-        raise AssertionError("oracle_probe differs from its twin")
-    out["oracle_probe"] = dict(ms=events_ms(cs, k12call, flush=True),
-                               host_ms=host_ms(k12call),
-                               device_ms=device_ms(k12call, True))
     return out
 
 
-# K2 geometries (warps a block, rows a warp's tile, listed rows a pass)
-# timed after the turns
-GEOMETRIES = ((8, 128, 32), (8, 128, 64), (4, 128, 64), (8, 160, 64),
-              (8, 192, 64), (4, 256, 64), (8, 256, 64), (4, 256, 128),
-              (8, 64, 32))
+def tail_rows(keys):
+    """The rows equal to the last row: K18's tail key."""
+    return (keys == keys[-1]).all(dim=1)
 
 
-def geometries(cs, ops, fns, want):
-    """This tree's K2 at every site under each of GEOMETRIES, bit for
-    bit against the twins: events and device time a call."""
-    keep = ops.keys_geometry
-    out = {}
-    try:
-        for g in GEOMETRIES:
-            def forced(W, PW, K, bw, kind, budget=None, fp=False, g=g):
-                return g + (ops.keys_smem(W, PW, K, bw, kind, *g),)
-            ops.keys_geometry = forced
-            ops._KEYS_GEOM.clear()
-            row = {}
-            for name, call in fns.items():
-                if not name.startswith("keys_of"):
-                    continue
-                got = call()
-                torch.cuda.synchronize()
-                if not _same(got, want[name]):
-                    raise AssertionError(f"{name} differs from its twin at "
-                                         f"geometry {g}")
-                flush = name.split("@")[1] in FLUSHED
-                row[name] = dict(ms=events_ms(cs, call, flush=flush),
-                                 device_ms=device_ms(call, flush))
-            key = "x".join(str(x) for x in g)
-            out[key] = row
-            print(json.dumps({"geometry": key, **row}), flush=True)
-    finally:
-        ops.keys_geometry = keep
-        ops._KEYS_GEOM.clear()
-    return out
+def kept_positions(keys):
+    """The digit positions K18's plan keeps: those whose byte varies over
+    the rows that are not the tail key."""
+    rest = keys[~tail_rows(keys)].to(torch.int64) & 0xFFFFFFFF
+    return sum(int(((rest[:, c] >> (8 * b)) & 0xFF).unique().numel() > 1)
+               for c in range(keys.shape[1]) for b in range(4))
 
 
-def shuffled(cs, sites, trees):
-    """Both trees' K2 at the sym and view sites as captured and with the
-    validity permuted (seed 0): the runs of valid rows (their count) set
-    how well one thread a row reads, so both are timed in turns (other,
-    this, this, other), each result bit for bit against the twin."""
-    from jaxmc_torch.kernels import ops
-    out = {}
-    for site in ("sym", "view"):
-        (rows, valid, pt, fp, ident), kw = sites[site]["keys"]
-        g = torch.Generator(device=valid.device).manual_seed(0)
-        perm = torch.randperm(valid.numel(), generator=g,
-                              device=valid.device)
-        for how, v in (("captured", valid), ("permuted",
-                                              valid[perm].contiguous())):
-            runs = int((v[1:] != v[:-1]).sum()) // 2 + 1
-            want = ops.keys_of_twin(rows, v, pt, fp, ident, **kw)
-            row = dict(valid=int(v.sum()), runs=runs, turns=[])
-            for who in ("other", "this", "this", "other"):
-                o = trees[who][0]
-
-                def call(o=o, v=v):
-                    return o.keys_of(rows, v, pt, fp, ident, **kw)
-                if not _same(call(), want):
-                    raise AssertionError(f"keys_of differs from its twin at "
-                                         f"{site}, {how}")
-                row["turns"].append(dict(tree=who, ms=events_ms(
-                    cs, call, flush=True), device_ms=device_ms(call, True)))
-            out[f"{site}_{how}"] = row
-            print(json.dumps({f"{site}_{how}": row}), flush=True)
-    return out
-
-
-def k12_library(k12):
-    """torch.searchsorted + index_copy_ + two sums: K12's function."""
-    sk, perm, keys = k12
-    perm64 = perm.to(torch.int64)
-    col, key = sk[:, 0].contiguous(), keys[:, 0].contiguous()
-
-    def library():
-        lo = torch.searchsorted(col, key).to(torch.int32)
-        out = torch.zeros_like(sk).index_copy_(0, perm64, sk)
-        return out, lo, out.sum(dtype=torch.int64) + lo.sum(
-            dtype=torch.int64)
-    return library
-
-
-def shapes(sites, ops):
+def shapes(sites):
     """Each site's sizes and byte bounds (chip_smoke.py's counts)."""
     out = {}
     for site, box in sites.items():
-        (rows, valid, pt, fp, ident), kw = box["keys"]
-        N, W = rows.shape
-        nv, PW = int(valid.sum()), pt["PW"]
-        name, kind = branch(kw)
-        bw = 0 if kind == 0 else kw["basis"].shape[1]
-        for fpk in ((False, True) if kind == 0 else (fp,)):
-            K = (4 if fpk else (bw if kind == 2 else PW)) + 1
-            warps, RW, P, smem = ops.keys_geometry(
-                W, PW, K, bw if kind == 2 else PW, kind, fp=fpk)
-            if fpk and kind == 0:
-                name = "keys_of_fp128"
-            out[f"{name}@{site}"] = dict(
-                N=N, valid=nv, W=W, PW=PW, K=K, basis_lanes=bw,
-                warps=warps, tile_rows=RW, pass_rows=P, dynamic_smem=smem,
-                bytes=N + nv * (W + bw) * 4 + N * (PW + K) * 4)
-        seen, count, keys, skeys, sidx, found, lb = box["margs"]
-        SC, K = seen.shape
-        N = keys.shape[0]
-        new = int(ops.merge_sorted_twin(seen, count, skeys, sidx, found,
-                                        lb)["new_count"])
-        items, tile, rows_b = ops.merge_geometry(K)
-        out[f"merge_sorted@{site}"] = dict(
-            N=N, seen_count=count, SC=SC, K=K, new=new, tile=tile,
-            out_rows=rows_b,
-            bytes=count * K * 4 + N * K * 4 + N + new * 8 + SC * K * 4
-            + N * 4)
+        keys = box["merge"][2]
+        N, K = keys.shape
+        tail = int(tail_rows(keys).sum())
+        out[f"sort_keys@{site}"] = dict(N=N, K=K, tail=tail,
+                                        kept=kept_positions(keys),
+                                        bytes=N * (2 * K + 1) * 4)
+        if site in ("ts", "4p"):
+            out[f"sort_keys_fp128@{site}"] = dict(N=N, K=5,
+                                                  bytes=N * 11 * 4)
+            explore, prov, A, FC = box["front"]
+            C = explore.numel()
+            out[f"front_order@{site}"] = dict(
+                C=C, A=A, FC=FC, explored=int(explore.sum()),
+                b=(C - 1).bit_length(), bytes=C * 13)
     return out
 
 
-def ptxas(lines):
-    return [ln for ln in lines if "Used" in ln or "spill" in ln
-            or "Compiling" in ln]
+def launch_times(fn, reps=5):
+    """This tree's K18 call launch by launch: each kernel's mean device
+    time in ms, in launch order (the profiler's events of `reps` calls,
+    L2 written over before each)."""
+    from torch.profiler import ProfilerActivity, profile
+    buf = torch.empty(L2_BYTES // 4, dtype=torch.int32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            buf.fill_(1)
+            fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events() if e.device_type.name == "CUDA"
+                  and "sort_" in e.key), key=lambda e: e.time_range.start)
+    per = len(evs) // reps
+    names = [e.key.split("sort_", 1)[1].split("_kernel")[0]
+             for e in evs[:per]]
+    return [[names[i], sum(evs[c * per + i].time_range.elapsed_us()
+                           for c in range(reps)) / reps / 1e3]
+            for i in range(per)]
+
+
+def engine_peak(tree, cs):
+    """(distinct, generated, diameter, peak bytes) of the 4-process level
+    run on `tree`'s port, in a child process."""
+    p = subprocess.run([sys.executable, "-c", PEAK_SRC,
+                        os.path.abspath(tree),
+                        os.path.join(cs.SPECS, "transfer_scaled.tla"),
+                        cs.CFG_4P], capture_output=True, text=True,
+                       timeout=900)
+    if p.returncode != 0:
+        raise RuntimeError(f"peak run on {tree}: {p.stderr[-2000:]}")
+    return [int(x) for x in p.stdout.split()[-4:]]
 
 
 def main() -> int:
@@ -363,55 +293,47 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
-    from jaxmc_torch.backend import oracle
     from jaxmc_torch.kernels import build, ops
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     load_pkg(a.other, "kernels", "other_kernels")
     other = importlib.import_module("other_kernels.ops")
-    obuild = importlib.import_module("other_kernels.build")
     t0 = time.time()
     sites = capture(cs)
-    for box in sites.values():
-        seen, count, keys = box["merge"]
-        skeys, sidx = ops._sort_keys(keys)
-        found, lb = ops.seen_probe(seen, count, skeys)
-        box["margs"] = (seen, count, keys, skeys, sidx, found.clone(),
-                        lb.clone())
-    print(f"captured in {time.time() - t0:.1f}s", flush=True)
-    want = twins(ops, sites)
-    keys = oracle.probe_keys(cs.DEVICE)
-    perm = ops.lsd_sort(keys)
-    k12 = (keys[perm].contiguous(), perm.to(torch.int32), keys)
-    want["k12"] = ops.oracle_probe_twin(*k12)
+    shp = shapes(sites)
+    print(json.dumps({"shapes": shp}), flush=True)
+    fns = calls(sites, ops, other)
     torch.cuda.synchronize()
-    lib = k12_library(k12)
-    trees = {"this": (ops, calls(ops, sites)),
-             "other": (other, calls(other, sites))}
+    print(f"captured in {time.time() - t0:.1f}s", flush=True)
     runs = []
     for who in ("other", "this", "this", "other"):
-        o, fns = trees[who]
-        runs.append(dict(tree=who, **turn(cs, fns, want, k12, o)))
-        runs[-1]["library_ms"] = {"oracle_probe": events_ms(cs, lib,
-                                                            flush=True)}
+        runs.append(dict(tree=who, **turn(cs, fns, who)))
         print(json.dumps(runs[-1]), flush=True)
-    variants = geometries(cs, ops, trees["this"][1], want)
-    scattered = shuffled(cs, sites, trees)
-    builds = {src: dict(this=ptxas(build.PTXAS.get(src, [])),
-                        other=ptxas(obuild.PTXAS.get(src, [])))
-              for src in ("keys", "merge")}
-    res = dict(card=smi, other=os.path.abspath(a.other),
-               shapes=shapes(sites, ops), builds=builds, runs=runs,
-               variants=variants, scattered=scattered)
+    launches = {name: launch_times(fns[name]["this"]) for name in fns
+                if not name.startswith("rank")}
+    print(json.dumps({"launch_times": launches}), flush=True)
+    memory = {f"{name}@4p": {who: cs._peak_of(fns[f"{name}@4p"][who])
+                             for who in ("other", "this")}
+              for name in ("sort_keys", "rank_merge", "front_order")}
+    print(json.dumps({"memory_a_call": memory}), flush=True)
+    del fns, sites
+    torch.cuda.empty_cache()
+    peaks = {who: engine_peak(tree, cs)
+             for who, tree in (("other", a.other), ("this", ROOT))}
+    print(json.dumps({"level_4p_peak": peaks}), flush=True)
+    build.library("sort")
+    ptx = [ln for ln in build.PTXAS.get("sort", [])
+           if "Used" in ln or "spill" in ln or "Compiling" in ln]
+    res = dict(card=smi, other=os.path.abspath(a.other), shapes=shp,
+               runs=runs, launch_times=launches,
+               memory_a_call=memory, level_4p_peak=peaks, ptxas=ptx)
     if a.out:
         os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)
         with open(a.out, "w") as fh:
             json.dump(res, fh, indent=1)
-    for name, b in builds.items():
-        for who in ("other", "this"):
-            for ln in b[who]:
-                print(f"[ptxas {name} {who}] {ln}")
+    for ln in ptx:
+        print(f"[ptxas sort] {ln}")
     print(smi)
     print(json.dumps(res))
     return 0

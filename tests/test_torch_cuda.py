@@ -1,4 +1,4 @@
-"""The CUDA kernels of the torch port (K1-K17) against their plain
+"""The CUDA kernels of the torch port (K1-K18) against their plain
 PyTorch twins, on the card, at the shapes the engines give them, the
 level engine on the card against the corpus pins, with SYMMETRY, VIEW
 and --por among them, the host-seen engine on the card against the
@@ -7,7 +7,8 @@ full-sort step, checkpoint/resume on the card against the CPU, the
 preflight probe (K12) and the oracle's gpu verdict, the mesh
 engine's exchange (K13), scalar vector (K14) and runs on the card
 against the CPU, and the generated transition kernels (K15 gen_expand,
-K16 gen_pred, K17 gen_value) against the emitter.
+K16 gen_pred, K17 gen_value) against the emitter, and K18 sort_keys
+with its front_order site, which every engine's sorts take.
 
 Needs a CUDA card and nvcc; elsewhere every test skips with the reason.
 Run on the card with:  python -m pytest -m gpu tests/test_torch_cuda.py
@@ -25,6 +26,9 @@ from keys_cases import plan as keys_plan
 from keys_cases import plan_tensors as keys_plan_tensors
 from merge_cases import KINDS as MERGE_KINDS
 from merge_cases import merge_case
+from sort_cases import PATTERNS as SORT_PATTERNS
+from sort_cases import front_case
+from sort_cases import keys_case as sort_case
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPECS = os.path.join(ROOT, "specs")
@@ -1697,3 +1701,262 @@ def test_generated_kernels_drive_every_engine(card):
             res[twins] = (r.ok, r.distinct, r.generated, r.diameter)
             assert (ops.LAUNCHES["gen_expand"] > 0) != twins, kw
         assert res[False] == res[True], kw
+
+
+# ---------------------------------------------------------------------------
+# K18: sort_keys and its front_order site
+# ---------------------------------------------------------------------------
+
+def _sort_twice(keys):
+    """K18 twice in a row on the same zero words, each call bit for bit
+    against the twin; 4K + 2 launches a call."""
+    from jaxmc_torch.kernels import ops
+    want = ops.sort_keys_twin(keys)
+    before = ops.LAUNCHES["sort_keys"]
+    for _ in range(2):
+        got = ops.sort_keys(keys)
+        torch.cuda.synchronize()
+        _eq(got[0], want[0])
+        _eq(got[1], want[1])
+    N, K = keys.shape
+    assert ops.LAUNCHES["sort_keys"] == before + (2 * (4 * K + 2) if N
+                                                  else 0)
+
+
+@pytest.mark.parametrize("K", [1, 3, 5, 8])
+@pytest.mark.parametrize("pattern", SORT_PATTERNS)
+@pytest.mark.parametrize("N", [0, 1, 2, 4097, 300000])
+def test_sort_keys_matches_twin(card, N, pattern, K):
+    """K18 on every pattern of sort_cases: uniform words, equal rows,
+    INT_MIN / -1 / 0 / INT_MAX, a validity word with a SENTINEL tail,
+    stale rows, the oracle's keys, long runs of ties."""
+    _sort_twice(torch.as_tensor(sort_case(pattern, N, K, N + K),
+                                device=card))
+
+
+@pytest.mark.parametrize("pattern,N,K", [
+    ("valid_tail", 27262976, 3),     # the 4-process widest level
+    ("stale", 60817408, 3),          # the full-sort step there
+    ("valid_tail", 655360, 5),       # transfer_scaled, fp128
+    ("oracle", 8192, 4),             # the preflight probe
+    ("random", 100000, 49)])         # an exact key at FP_THRESHOLD
+def test_sort_keys_at_the_engines_shapes(card, pattern, N, K):
+    _sort_twice(torch.as_tensor(sort_case(pattern, N, K, 3), device=card))
+
+
+@pytest.mark.parametrize("A,FC,explored,new_frac", [
+    (13, 2097152, 0.9, 0.063),       # the 4-process widest level
+    (13, 65536, 0.8, 0.18), (1, 1, 1.0, 1.0), (3, 8, 0.5, 0.3),
+    (7, 4096, 0.0, 0.5), (5, 65536, 1.0, 1.0), (33, 262144, 0.5, 0.1)])
+def test_front_order_matches_twin(card, A, FC, explored, new_frac):
+    """front_order over the level step's explore flags and provenance,
+    twice in a row, against torch.sort of the int64 key; ceil((b + 1) /
+    8) + 2 launches a call."""
+    from jaxmc_torch.kernels import ops
+    explore, prov = front_case(A, FC, A + FC, explored, new_frac)
+    e = torch.as_tensor(explore, device=card)
+    p = torch.as_tensor(prov, device=card)
+    want = ops.front_order_twin(e, p, A, FC)
+    before = ops.LAUNCHES["front_order"]
+    for _ in range(2):
+        got = ops.front_order(e, p, A, FC)
+        torch.cuda.synchronize()
+        _eq(got, want)
+    b = (A * FC - 1).bit_length()
+    assert ops.LAUNCHES["front_order"] == before + 2 * (b // 8 + 3)
+
+
+def test_sort_and_rank_merge_replay_in_a_cuda_graph(card):
+    """K18 keeps no state between calls: rank_merge (K18 + K3 + K4) and
+    front_order captured once, after a warm call on the capture stream,
+    replay to the twins' results on two input sets copied into the
+    captured inputs."""
+    from jaxmc_torch.kernels import ops
+    sets = []
+    for seed in (1, 2):
+        seen, count, keys = merge_case("full", 3, 300000, seed, count=1000)
+        explore, prov = front_case(13, 16384, seed)
+        sets.append([torch.as_tensor(x, device=card)
+                     for x in (seen, keys, explore, prov)])
+    seen, keys, e, p = [x.clone() for x in sets[0]]
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        ops.rank_merge(seen, 1000, keys)
+        ops.front_order(e, p, 13, 16384)
+    s.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=s):
+        got = ops.rank_merge(seen, 1000, keys)
+        order = ops.front_order(e, p, 13, 16384)
+    for i in (1, 0, 1):
+        for dst, src in zip((seen, keys, e, p), sets[i]):
+            dst.copy_(src)
+        g.replay()
+        torch.cuda.synchronize()
+        want = ops.rank_merge_twin(seen, 1000, keys)
+        for name in MERGE_OUT:
+            _eq(got[name], want[name])
+        _eq(order, ops.front_order_twin(e, p, 13, 16384))
+
+
+@pytest.mark.parametrize("streams", ["one", "two"])
+def test_sort_keys_from_two_threads(card, streams):
+    """K18 and front_order from two host threads at once, on one stream
+    or a stream each: every call equals its twin (a call's launches stay
+    together on its stream; another stream has zero words of its own)."""
+    import threading
+    from jaxmc_torch.kernels import ops
+    keys = [torch.as_tensor(sort_case(pat, 200000, 3, t), device=card)
+            for t, pat in enumerate(("valid_tail", "random"))]
+    fronts = [[torch.as_tensor(x, device=card) for x in front_case(
+        13, 8192 << t, t)] for t in (0, 1)]
+    want = [ops.sort_keys_twin(k) for k in keys]
+    wantf = [ops.front_order_twin(e, p, 13, 8192 << t)
+             for t, (e, p) in enumerate(fronts)]
+    torch.cuda.synchronize()
+    got, errors = [[], []], []
+
+    def run(t):
+        try:
+            s = torch.cuda.Stream() if streams == "two" \
+                else torch.cuda.default_stream()
+            with torch.cuda.stream(s):
+                for _ in range(20):
+                    got[t].append((ops.sort_keys(keys[t]),
+                                   ops.front_order(*fronts[t], 13,
+                                                   8192 << t)))
+            s.synchronize()
+        except Exception as e:     # raised again in the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(t,)) for t in (0, 1)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    torch.cuda.synchronize()
+    if errors:
+        raise errors[0]
+    for t in (0, 1):
+        assert len(got[t]) == 20
+        for (sk, si), order in got[t]:
+            _eq(sk, want[t][0])
+            _eq(si, want[t][1])
+            _eq(order, wantf[t])
+
+
+def test_sort_keys_raises_on_a_refused_launch(card, monkeypatch):
+    """A call the kernel does not take raises and counts nothing: with
+    the wrapper's width check lifted, keys of 57 words ask the upsweep
+    for more shared memory than a block has, and its entry refuses; the
+    next call equals the twin.  Shapes past the limits raise ValueError."""
+    from jaxmc_torch.kernels import ops
+    keys = torch.as_tensor(sort_case("random", 5000, 3, 1), device=card)
+    wide = torch.zeros((100, 57), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="sort_keys"):
+        ops.sort_keys(wide)
+    ops.reset_launches()
+    monkeypatch.setattr(ops, "SORT_MAX_K", 64)
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        ops.sort_keys(wide)
+    assert not any(ops.LAUNCHES.values()), ops.LAUNCHES
+    monkeypatch.undo()
+    _sort_twice(keys)
+
+
+@pytest.mark.parametrize("engine", ["level", "fullsort", "resident", "mesh",
+                                    "oracle"])
+def test_no_library_sort_on_the_card(card, monkeypatch, engine):
+    """Each engine on the card with torch.sort and torch.argsort made to
+    raise on a CUDA tensor: its sorts are K18's (sort_keys, and the level
+    step's front_order) and its counts equal the CPU run's."""
+    from jaxmc_torch.backend.bfs import TorchExplorer
+    from jaxmc_torch.backend.mesh import MeshExplorer
+    from jaxmc_torch.kernels import ops
+    from jaxmc_torch.session import load_model
+
+    def guard(f):
+        def g(x, *a, **kw):
+            if isinstance(x, torch.Tensor) and x.is_cuda:
+                raise AssertionError(f"{f.__name__} on a CUDA tensor")
+            return f(x, *a, **kw)
+        return g
+    if engine == "oracle":
+        from jaxmc_torch.backend import oracle
+        for dev in ("cuda", "cpu"):
+            res = oracle.probe(oracle.probe_keys(dev))
+        monkeypatch.setattr(torch, "sort", guard(torch.sort))
+        monkeypatch.setattr(torch, "argsort", guard(torch.argsort))
+        ops.reset_launches()
+        got = int(oracle.probe(oracle.probe_keys("cuda")))
+        assert got == int(res)
+        assert ops.LAUNCHES["sort_keys"] == 4 * 4 + 2
+        assert ops.LAUNCHES["oracle_probe"] == 1
+        return
+    if engine == "fullsort":
+        monkeypatch.setenv("JAXMC_LEVEL_RANKMERGE", "0")
+    kw = {"resident": dict(resident=True, chunk=4096),
+          "mesh": dict(shards=4)}.get(engine, {})
+    cls = MeshExplorer if engine == "mesh" else TorchExplorer
+    res = {}
+    for dev in ("cpu", "cuda"):
+        if dev == "cuda":
+            monkeypatch.setattr(torch, "sort", guard(torch.sort))
+            monkeypatch.setattr(torch, "argsort", guard(torch.argsort))
+        ops.reset_launches()
+        r = cls(load_model(os.path.join(SPECS, "transfer_scaled.tla")),
+                device=dev, store_trace=False, **kw).run()
+        res[dev] = (r.ok, r.distinct, r.generated, r.diameter)
+    assert res["cuda"] == res["cpu"] == (True, 153701, 311153, 9)
+    assert ops.LAUNCHES["sort_keys"] > 0, ops.LAUNCHES
+    assert (ops.LAUNCHES["front_order"] > 0) == \
+        (engine in ("level", "fullsort")), ops.LAUNCHES
+
+
+def test_level_step_does_not_synchronise(card):
+    """The level step's sorts read nothing back to the host: the step
+    runs under torch.cuda.set_sync_debug_mode("error") but for the
+    emitter's predicates (the engine reads its scalars after the step,
+    one synchronisation a level)."""
+    from jaxmc_torch.backend.bfs import TorchExplorer
+    from jaxmc_torch.session import load_model
+
+    def quiet(f):
+        def g(*a):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("default")
+            try:
+                return f(*a)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        return g
+
+    class NoSync(TorchExplorer):
+        steps = 0
+        armed = False
+
+        def level_step(self, *a):
+            if not self.armed:
+                return super().level_step(*a)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = super().level_step(*a)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            NoSync.steps += 1
+            return out
+
+        def _expand(self, frontier):
+            return quiet(super()._expand)(frontier)
+
+    eng = NoSync(load_model(os.path.join(SPECS, "transfer_scaled.tla")),
+                 store_trace=False)
+    eng.inv_fns = [(n, quiet(f)) for n, f in eng.inv_fns]
+    eng.constraint_fns = [(n, quiet(f)) for n, f in eng.constraint_fns]
+    eng.run()
+    eng.armed = True
+    try:
+        r = eng.run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert r.ok and NoSync.steps == 10

@@ -199,7 +199,7 @@ def model_merge(seen, count, skeys, sidx, found, lb, items, R, ws, rng):
 def _inputs(kind, K, N, seed):
     seen, count, keys = merge_case(kind, K, N, seed)
     ts, tk = torch.as_tensor(seen), torch.as_tensor(keys)
-    skeys, sidx = ops._sort_keys(tk)
+    skeys, sidx = ops.sort_keys_twin(tk)
     found, lb = ops.seen_probe_twin(ts, count, skeys)
     return seen, count, keys, (ts, count, skeys, sidx, found, lb)
 
